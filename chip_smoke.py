@@ -7,9 +7,15 @@ R3D-18, 16x128x128 clips, 128-d embeddings) with random seeded weights and
 data, in phases that each print one JSON line:
 
   device     card name and power limit, torch/CUDA versions, kernel builds
-             (nvcc, sm_90a, all sources at once)
+             (nvcc, sm_90a, all sources at once) with ptxas' registers,
+             spills and shared memory, and the SASS opcode counts
+             (cuobjdump; nn1_cosine must hold HGMMA and UTMALDG)
   kernel     each hand-written kernel against its plain PyTorch version on
-             the card, at the path's shapes (ties and ragged edges included)
+             the card, at the path's shapes (ties, near ties, padding of D,
+             D > 128 and ragged edges included), with its time beside the
+             3xTF32 tensor-core bound and the fp32 CUDA-core bound; at 240k
+             the kernel's picks and level-0 partition are held to an fp64
+             1-NN (the plain version's are reported beside them)
   embed      get_embeddings_and_labels over 4096 train clips (batches of
              256) and a multi-window test split; clips/s, peak memory, and
              the bf16 embeddings against the fp32 forward
@@ -31,8 +37,10 @@ without one, and outside a checkout of the repository)
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,9 +58,12 @@ KERNELS = {
                    "video_similarity_search_tpu/ops/pallas_knn.py:37"),
 }
 
-# (fp32 CUDA-core FLOP/s, HBM bytes/s) from NVIDIA's data sheets (dense)
-PEAKS = {"PCIe": (51e12, 2.0e12), "NVL": (60e12, 3.9e12),
-         "SXM": (67e12, 3.35e12)}
+# (fp32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM bytes/s) from
+# NVIDIA's data sheets, dense (the TF32 rate is half the sparse figure)
+PEAKS = {"PCIe": (51e12, 378e12, 2.0e12), "NVL": (60e12, 417.5e12, 3.9e12),
+         "SXM": (67e12, 495e12, 3.35e12)}
+# nn1_cosine's fp32-accurate products take three TF32 passes (3xTF32)
+TF32_PASSES = 3
 
 KIN_OPTS = ["MODEL.ARCH", "3dresnet", "RESNET.MODEL_DEPTH", 18,
             "RESNET.SHORTCUT", "B", "RESNET.CONV1_T_SIZE", 7,
@@ -136,6 +147,24 @@ def same_partition(a: np.ndarray, b: np.ndarray) -> bool:
 
 # --------------------------------------------------------------------------
 
+def sass_opcodes(lib: str) -> dict:
+    """Opcode counts of a built library's SASS (``cuobjdump -sass``)."""
+    from video_similarity_search_tpu_torch.ops.cuda_build import find_nvcc
+
+    tool = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     sass)
+    return dict(collections.Counter(ops).most_common())
+
+
+def key_opcodes(counts: dict) -> dict:
+    """The opcodes that show the route: tensor-core products (HGMMA), TMA
+    loads (UTMALDG), and fp32 FMAs on the CUDA cores (FFMA)."""
+    return {op: counts.get(op, 0) for op in ("HGMMA", "UTMALDG", "FFMA")}
+
+
 def phase_device():
     import torch
 
@@ -148,37 +177,64 @@ def phase_device():
         libs = dict(zip(KERNELS, pool.map(cuda_build.build, KERNELS)))
     build_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in cuda_build.BUILD_LOGS.get(name, "")
-                    .splitlines() if "registers" in ln or "spill" in ln]
+                    .splitlines() if "registers" in ln or "spill" in ln
+                    or "smem" in ln]
              for name in KERNELS}
+    sass = {name: sass_opcodes(lib) for name, lib in libs.items()}
+    smem = cuda_build.load("nn1_cosine").nn1_cosine_smem_bytes
+    smem_bytes = {f"nn1_cosine d_pad={d}": smem(d) for d in (128, 256)}
+    for op in ("HGMMA", "UTMALDG"):
+        check(sass["nn1_cosine"].get(op, 0) > 0,
+              f"nn1_cosine's SASS has {op} (tensor cores fed by TMA)")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls in IEEE float32 (allow_tf32 off)")
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), build_s=build_s,
          libraries={k: os.path.relpath(v, ROOT) for k, v in libs.items()},
-         ptxas=ptxas)
-    return smi
+         ptxas=ptxas, dynamic_smem_bytes=smem_bytes, sass=sass)
+    return smi, sass
 
 
-def phase_kernel_nn1(smi: str, bank: np.ndarray):
+def phase_kernel_nn1(smi: str, sass: dict, bank: np.ndarray):
     """nn1_cosine against ops/pdist.nearest_neighbor (tiled torch.mm +
-    masked argmin, IEEE fp32) on the same inputs."""
+    masked argmin, IEEE fp32) on the same inputs. Distances within 1e-5;
+    an index may differ only where its distance is within 1e-6 of the
+    plain minimum (a tie under another summation order)."""
     import torch
 
     from video_similarity_search_tpu_torch.ops import fused_knn
     from video_similarity_search_tpu_torch.ops.pdist import (l2_normalize,
                                                               nearest_neighbor)
 
-    variant, (flops_peak, bw_peak) = peaks_for(smi)
+    variant, (fp32_peak, tf32_peak, bw_peak) = peaks_for(smi)
     rng = np.random.default_rng(SEED)
     dup = rng.normal(size=(1366, 128)).astype(np.float32)
+    near = np.concatenate([dup] + [
+        dup * (1 + 1e-6 * rng.normal(size=dup.shape)) for _ in range(2)])
+    queries, _ = mixture(9537, seed=7)
+    wave = 128 * torch.cuda.get_device_properties(0).multi_processor_count
     cases = [
         ("self 37x16", rng.normal(size=(37, 16)), None),
         ("cross 37x53x16", rng.normal(size=(37, 16)),
          rng.normal(size=(53, 16))),
+        ("cross 37x53x20 (D padded to 32)", rng.normal(size=(37, 20)),
+         rng.normal(size=(53, 20))),
+        ("self 3000x256 (A streamed)", rng.normal(size=(3000, 256)), None),
         ("self 4096x128 ties", np.concatenate([dup, dup, dup])[:4096], None),
+        ("self 4096x128 near ties", near[:4096], None),
+        ("cross 9537x240000x128", queries, bank),
+        # L2 probes: one CTA per SM sweeping a bank that stays in L2 (24.6
+        # MB in hi + lo) or the 240k bank; then the 240k bank with half the
+        # SMs pulling from L2. Equal per-SM rates: L2 does not set the pace
+        (f"cross {wave}x24000x128 (one wave, bank in L2)", bank[:wave],
+         bank[:24000]),
+        (f"cross {wave}x240000x128 (one wave)", bank[:wave], bank),
+        (f"cross {wave // 2}x240000x128 (half the SMs)", bank[:wave // 2],
+         bank),
         ("self 240000x128", bank, None),
     ]
+    sass_key = key_opcodes(sass["nn1_cosine"])
     shapes = []
     for label, x_np, y_np in cases:
         x = torch.from_numpy(np.asarray(x_np, np.float32)).cuda()
@@ -202,24 +258,68 @@ def phase_kernel_nn1(smi: str, bank: np.ndarray):
         check(tie_gap <= 1e-6, f"nn1_cosine {label}: index differs beyond "
               f"a tie ({n_diff} rows, gap {tie_gap})")
         check(bool(torch.isfinite(kd).all()), f"nn1_cosine {label}: finite")
+        extra = {}
+        if label == "self 240000x128":
+            extra = fp64_referee(xn, ki, kd, pi, pd)
         m, n, d = xn.shape[0], yn.shape[0], xn.shape[1]
         flops = 2.0 * m * n * d
         nbytes = (m + (0 if self_q else n)) * d * 4 + m * (8 + 4)
-        bound_ms = max(flops / flops_peak, nbytes / bw_peak) * 1e3
+        tc_s, mem_s = TF32_PASSES * flops / tf32_peak, nbytes / bw_peak
         reps = 5
         k_ms = time_ms(lambda: fused_knn.nn1_cosine_cuda(xn, yn, self_q),
                        reps)
         p_ms = time_ms(lambda: nearest_neighbor(
             xn, None if self_q else yn, exclude_self=self_q), reps)
         row = {"shape": label, "m": m, "n": n, "d": d, "max_abs_err": err,
-               "index_mismatches_on_ties": n_diff, "ms": k_ms,
-               "plain_ms": p_ms, "bound_ms": bound_ms,
-               "bound_by": "operations" if flops / flops_peak
-               >= nbytes / bw_peak else "bytes",
-               "peak_variant": variant, "reps": reps}
+               "index_mismatches_on_ties": n_diff, "max_tie_gap": tie_gap,
+               "ms": k_ms, "plain_ms": p_ms,
+               "bound_ms": max(tc_s, mem_s) * 1e3,
+               "bound_by": "operations" if tc_s >= mem_s else "bytes",
+               "fp32_simt_bound_ms": max(flops / fp32_peak, mem_s) * 1e3,
+               "tflops_fp32_accurate": flops / (k_ms * 1e-3) / 1e12,
+               "peak_variant": variant, "reps": reps, "sass": sass_key,
+               **extra}
         shapes.append(row)
         emit("kernel", name="nn1_cosine", **row)
     return shapes
+
+
+def fp64_referee(xn, ki, kd, pi, pd, tile: int = 512) -> dict:
+    """Holds the kernel's 240k self-query result (``ki``, ``kd``) to an
+    fp64 1-NN: a pick may differ from it only where the two lie within 1e-6
+    in exact distance, and the level-0 partition (connected components of
+    the picks) must be the fp64 one. The plain version's (``pi``, ``pd``) is
+    reported beside it: on a near tie, IEEE fp32 in cuBLAS's order may pick
+    otherwise."""
+    from video_similarity_search_tpu_torch.ops.cc import connected_components
+    from video_similarity_search_tpu_torch.utils.nn1_accumulation import \
+        fp64_nearest
+
+    ti, td = fp64_nearest(xn, tile)
+    x64 = xn.double()
+
+    def wrong(picks):
+        bad = picks != ti
+        gap = 1.0 - (x64[bad] * x64[picks[bad]]).sum(1) - td[bad]
+        return int(bad.sum()), float(gap.max()) if bad.any() else 0.0
+
+    parts = {k: connected_components(v).cpu().numpy()
+             for k, v in (("fp64", ti), ("kernel", ki), ("plain", pi))}
+    k_wrong, k_gap = wrong(ki)
+    p_wrong, p_gap = wrong(pi)
+    same = same_partition(parts["kernel"], parts["fp64"])
+    check(k_gap <= 1e-6, f"240k: the kernel's pick differs from fp64 by "
+          f"{k_gap} in exact distance")
+    check(same, "240k level-0 partition: kernel = fp64 referee")
+    return {"max_abs_err_vs_fp64_kernel": float((kd.double() - td).abs().max()),
+            "max_abs_err_vs_fp64_plain": float((pd.double() - td).abs().max()),
+            "fp64_rows_differ_kernel": k_wrong, "fp64_gap_kernel": k_gap,
+            "fp64_rows_differ_plain": p_wrong, "fp64_gap_plain": p_gap,
+            "level0_partition_kernel_eq_fp64": same,
+            "level0_partition_plain_eq_fp64": same_partition(
+                parts["plain"], parts["fp64"]),
+            "level0_partition_kernel_eq_plain": same_partition(
+                parts["kernel"], parts["plain"])}
 
 
 def make_cfg():
@@ -431,9 +531,9 @@ def main() -> int:
 
     from video_similarity_search_tpu_torch.ops import fused_knn
 
-    smi = phase_device()
+    smi, sass = phase_device()
     bank, bank_lbl = mixture(240_000, seed=0)
-    shapes = phase_kernel_nn1(smi, bank)
+    shapes = phase_kernel_nn1(smi, sass, bank)
     model, cfg, emb4096, cache = phase_embed()
     finch_launches = phase_cluster(bank, bank_lbl, emb4096)
     phase_retrieval(model, cfg, cache, bank)
@@ -448,6 +548,9 @@ def main() -> int:
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None,
+        "fp32_simt_bound_ms": main_shape["fp32_simt_bound_ms"],
+        "tflops_fp32_accurate": main_shape["tflops_fp32_accurate"],
+        "sass": key_opcodes(sass["nn1_cosine"]),
         "shape": main_shape["shape"], "shapes": shapes}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -66,8 +66,11 @@ def test_nn1_cosine_kernel_matches_plain_version_on_the_card():
     from video_similarity_search_tpu_torch.ops.pdist import (l2_normalize,
                                                               nearest_neighbor)
     rng = np.random.default_rng(0)
+    # D=20 takes the padding to the kernel's 32-wide chunk; D=256 streams
+    # the query rows through the ring instead of keeping them resident
     for m, n, d, self_q in [(37, 37, 16, True), (37, 53, 16, False),
-                            (1000, 1000, 128, True)]:
+                            (1000, 1000, 128, True), (37, 53, 20, False),
+                            (300, 300, 256, True)]:
         x = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32)).cuda()
         y = x if self_q else torch.from_numpy(
             rng.normal(size=(n, d)).astype(np.float32)).cuda()

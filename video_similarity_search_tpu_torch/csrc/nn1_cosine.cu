@@ -1,160 +1,357 @@
 // Exact cosine 1-nearest-neighbor for FINCH's first level, hand-written for
-// Hopper (sm_90a).
+// Hopper (sm_90a): error-compensated TF32 ("3xTF32") on the tensor cores
+// (wgmma), fed by TMA through a ring of shared-memory stages.
 //
 // Replaces the TPU kernel video_similarity_search_tpu/ops/pallas_knn.py::
 // _nn_kernel (:37-75, launched through pl.pallas_call at :93): for every row
 // of x (M, D) it finds argmin_j (1 - x_i . y_j) over the rows of y (N, D)
-// without forming the M x N matrix. Rows arrive L2-normalized and
-// unpadded; the kernel masks the ragged edges (col >= N) itself, and for a
-// self-query (exclude_self) the diagonal. Ties go to the lowest column, as
-// in the TPU kernel's strict-< merge. A row with no candidate returns
-// (0, 3.4e38), the TPU kernel's _BIG.
+// without forming the M x N matrix. Columns >= N are masked, and for a
+// self-query (exclude_self) the diagonal. Ties go to the lowest column: a
+// strict < over columns in increasing order, then a lexicographic (dist,
+// idx) merge, as the TPU kernel's strict-< merge. A row with no candidate
+// returns (0, 3.4e38), the TPU kernel's _BIG. dist = 1.0f - dot, in fp32.
 //
-// Design: each 256-thread block owns 128 query rows and streams the bank in
-// 128-row tiles, D in chunks of 8 through shared memory (k-major, padded so
-// the transposing stores are bank-conflict free). Each thread accumulates
-// an 8x8 register tile in IEEE fp32 FMA -- no TF32, so near-tie argmins do
-// not flip against the fp32 reference (ROADMAP hazard H3) -- and folds
-// it into a running (dist, idx) per row with a strict <, visiting its
-// columns in increasing order. The 16 threads that share a row merge with
-// warp shuffles, lexicographically on (dist, idx).
+// Operands. The wrapper (ops/fused_knn.py) zero-pads D to a multiple of 32
+// (one 128-byte swizzle row of fp32; exact for dot products) and splits each
+// fp32 value into two exact TF32 values, hi = tf32(v) and lo = tf32(v - hi),
+// with the low 13 bits of both zero, so the tensor core sees exactly these
+// numbers whether it truncates or rounds its inputs. For each 32-wide D
+// chunk the kernel issues lo.hi and hi.lo (the small terms, while the
+// chunk's sum is still small), then hi.hi, into a chunk sum that starts at
+// zero, and adds that chunk sum to an fp32 running sum on the CUDA cores
+// (rounded to nearest). The lo.lo term is dropped.
 //
-// Bound: the work is 2*M*N*D flops and reads (M+N)*D*4 bytes, so at FINCH's
-// Kinetics scale (M = N = 240,000, D = 128: 1.47e16 flops) it is
-// compute-bound: about 220 ms at the fp32 CUDA-core peak of an H100 SXM
-// (67 TFLOP/s; about 51 TFLOP/s, 290 ms, on the PCIe card). Later work: a
-// wgmma/TMA pipeline in error-compensated TF32 (3xTF32) or bf16 with an
-// fp32 re-rank of near ties, whose tensor-core peaks are about 495 / 989
-// TFLOP/s dense.
+// Error budget, for unit rows: the split leaves |v - hi - lo| <= 2^-22 |v|,
+// and the dropped lo.lo term is at most 2^-22 sum|x_k y_k| <= 2^-22, so the
+// representation costs at most about 3 * 2^-22 = 7.2e-7 of the dot product;
+// each hi.lo product is exact in fp32 (11 x 11 significand bits). The
+// tensor core sums a k-step's products and its accumulator with truncation,
+// so each wgmma can lose about an ulp of the sum it adds to: summing a whole
+// D = 128 in one accumulator lost up to 1.4e-6 against an fp64 reference
+// at 240k (twice the IEEE-fp32 plain version's 7.2e-7); summing per chunk
+// and promoting lost at most 2.2e-7, for 4% more time. chip_smoke.py holds
+// the distances to 1e-5 of the plain version, allows an index to differ
+// only where the two candidates lie within 1e-6, and holds the 240k picks
+// and level-0 partition to an fp64 referee.
+//
+// Bound: the work is 2*M*N*D operations with fp32-accurate products. The
+// card's fastest fp32-accurate products are three TF32 tensor-core passes:
+// at FINCH's Kinetics scale (M = N = 240,000, D = 128: 1.47e13 operations)
+// 3 * 1.47e13 / 495e12 = 89.4 ms on an H100 SXM at 700 W (dense TF32 of
+// the data sheets: PCIe 378 TFLOP/s, 117 ms; NVL 417.5 TFLOP/s, 106 ms);
+// IEEE fp32 on the CUDA cores would need 220.1 ms (67 TFLOP/s). Inputs are
+// about 0.25 GB: compute-bound.
+//
+// Design. One CTA of 384 threads owns 128 query rows and sweeps the whole
+// bank, so no reduction across CTAs is needed. Warpgroups 0 and 1 are
+// consumers: 64 rows each, m64n128k8 wgmma, and a thread keeps 64 chunk
+// sums and 64 running sums. Warpgroup 2 is the producer: one of its threads
+// issues every TMA copy, and setmaxnreg moves registers from it to the
+// consumers. For D <= 128 the CTA's A_hi and A_lo (128 x D each, 128 KB at
+// D = 128) are loaded once and stay resident; the bank comes in 128-row x
+// 32-wide chunks of B_hi and B_lo (32 KB) through a 3-stage ring with
+// full/empty mbarriers (224 KB in all). A wider D streams A's chunks with
+// B's through the same ring (64 KB a stage): correct at any D, not tuned.
+// After each bank tile, each thread folds its running sums into a running
+// (dist, idx) for its two rows; at the end the four threads of a quad merge
+// with shuffles.
+//
+// Hazard 1, L2 traffic: every CTA re-reads the whole bank in hi + lo,
+// (M/128) * N * D * 8 bytes = 461 GB at 240k, 3.5-5.2 TB/s from L2 at
+// 89-130 ms. chip_smoke.py times one full wave of CTAs on a bank that fits
+// in L2 and on the 240k bank, and the 240k bank with half the SMs; PERF.md
+// records the finding and why the kernel keeps one CTA per cluster, with no
+// TMA multicast.
+// Hazard 2, the TMA descriptor: cuTensorMapEncodeTiled is a driver call;
+// it is fetched through cudaGetDriverEntryPoint, so the library links no
+// -lcuda. The four descriptors go in as __grid_constant__ parameters.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;       // query rows per block
+using namespace hopper;
+
+constexpr int BM = 128;       // query rows per CTA
 constexpr int BN = 128;       // bank rows per tile
-constexpr int BK = 8;         // D chunk through shared memory
-constexpr int PAD = 4;        // keeps float4 alignment, spreads stores
-constexpr int THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+constexpr int BK = 32;        // D chunk: 32 fp32 = one 128-byte swizzle row
+constexpr int STAGES = 3;     // depth of the ring
+constexpr int THREADS = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int TILE_BYTES = 128 * BK * 4;  // one 128-row x 32 box: 16 KB
+constexpr int N_BARS = 2 * STAGES + 1;    // full[], empty[], a_full
 constexpr float BIG = 3.4e38f;
 
-__device__ __forceinline__ int sub_of(int t, int i) {
-  // the 8 rows (or columns) a thread owns: t*4 + 0..3 and 64 + t*4 + 0..3,
-  // in increasing order
-  return (i < 4) ? t * 4 + i : 64 + t * 4 + (i - 4);
+__host__ __device__ constexpr int stage_bytes(bool resident_a) {
+  return (resident_a ? 2 : 4) * TILE_BYTES;
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
-nn1_cosine_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                  long long* __restrict__ out_idx,
-                  float* __restrict__ out_dist, int M, int N, int D,
-                  int exclude_self) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
+// A stays resident while both its parts fit beside the ring: D <= 128
+bool keeps_a_resident(int d_pad) { return d_pad <= 128; }
+
+int smem_bytes(bool resident_a, int nk) {
+  return 1024 /* alignment slack */ + (resident_a ? 2 * nk * TILE_BYTES : 0) +
+         STAGES * stage_bytes(resident_a) + N_BARS * 8;
+}
+
+template <bool kResidentA>
+__global__ void __launch_bounds__(THREADS, 1)
+    nn1_cosine_kernel(const __grid_constant__ CUtensorMap x_hi,
+                      const __grid_constant__ CUtensorMap x_lo,
+                      const __grid_constant__ CUtensorMap y_hi,
+                      const __grid_constant__ CUtensorMap y_lo,
+                      long long* __restrict__ out_idx,
+                      float* __restrict__ out_dist, int M, int N, int nk,
+                      int exclude_self) {
+  constexpr int SB = stage_bytes(kResidentA);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  // 128-byte swizzle atoms must start on 1024 bytes
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // resident: [A_hi x nk][A_lo x nk][stage: B_hi B_lo] x STAGES
+  // streamed: [stage: B_hi B_lo A_hi A_lo] x STAGES
+  uint8_t* a_tiles = smem;
+  uint8_t* stages = smem + (kResidentA ? 2 * nk * TILE_BYTES : 0);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stages + STAGES * SB);
+  uint64_t* empty = full + STAGES;
+  uint64_t* a_full = empty + STAGES;
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-
-  float best_d[8];
-  int best_i[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    best_d[i] = BIG;
-    best_i[i] = 0;
-  }
-
-  for (long long n0 = 0; n0 < N; n0 += BN) {
-    float acc[8][8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-    for (int k0 = 0; k0 < D; k0 += BK) {
-#pragma unroll
-      for (int l = 0; l < (BM * BK) / THREADS; ++l) {
-        const int e = tid + l * THREADS;
-        const int r = e / BK;
-        const int c = e % BK;
-        const int gc = k0 + c;
-        const long long gm = m0 + r;
-        const long long gn = n0 + r;
-        As[c][r] = (gm < M && gc < D) ? x[gm * D + gc] : 0.f;
-        Bs[c][r] = (gn < N && gc < D) ? y[gn * D + gc] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(&As[k][64 + ty * 4]);
-        const float4 b0 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-        const float4 b1 =
-            *reinterpret_cast<const float4*>(&Bs[k][64 + tx * 4]);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+  const int wg = tid / 128;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);  // one arrival per consumer warpgroup
     }
+    mbar_init(a_full, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const long long row = m0 + sub_of(ty, i);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const long long col = n0 + sub_of(tx, j);
-        if (col < N && !(exclude_self && col == row)) {
-          const float d = 1.0f - acc[i][j];
-          if (d < best_d[i]) {
-            best_d[i] = d;
-            best_i[i] = static_cast<int>(col);
+  const int m0 = blockIdx.x * BM;
+  const int n_tiles = (N + BN - 1) / BN;
+
+  if (wg == 2) {
+    // ---- producer: one thread issues every copy ----
+    reg_dealloc<40>();
+    if (tid == 256) {
+      if (kResidentA) {
+        mbar_arrive_expect_tx(a_full, 2 * nk * TILE_BYTES);
+        for (int c = 0; c < nk; ++c) {
+          tma_load_2d(a_tiles + c * TILE_BYTES, &x_hi, a_full, c * BK, m0);
+          tma_load_2d(a_tiles + (nk + c) * TILE_BYTES, &x_lo, a_full, c * BK,
+                      m0);
+        }
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = 0; t < n_tiles; ++t) {
+        for (int c = 0; c < nk; ++c) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* sb = stages + stage * SB;
+          // rows past M or N arrive as zeros and still count in full
+          mbar_arrive_expect_tx(&full[stage], SB);
+          tma_load_2d(sb, &y_hi, &full[stage], c * BK, t * BN);
+          tma_load_2d(sb + TILE_BYTES, &y_lo, &full[stage], c * BK, t * BN);
+          if (!kResidentA) {
+            tma_load_2d(sb + 2 * TILE_BYTES, &x_hi, &full[stage], c * BK, m0);
+            tma_load_2d(sb + 3 * TILE_BYTES, &x_lo, &full[stage], c * BK, m0);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
           }
         }
       }
     }
-  }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup ----
+    reg_alloc<232>();
+    const int lane = tid % 32;
+    const int row0 = m0 + wg * 64 + ((tid % 128) / 32) * 16 + lane / 4;
+    const int a_off = wg * 64 * 128;  // this warpgroup's rows, in bytes
+    const bool signals = (tid % 128) == 0;
 
-  // merge the 16 threads (one half-warp) that share each row
+    float acc[64];   // the bank tile's dot products, fp32
+    float part[64];  // one D chunk's, from the tensor cores
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    float bd = best_d[i];
-    int bi = best_i[i];
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+    float best_d[2] = {BIG, BIG};
+    int best_i[2] = {0, 0};
+
+    if (kResidentA) mbar_wait(a_full, 0);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      for (int c = 0; c < nk; ++c) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* sb = stages + stage * SB;
+        const uint8_t* a_hi =
+            kResidentA ? a_tiles + c * TILE_BYTES : sb + 2 * TILE_BYTES;
+        const uint8_t* a_lo =
+            kResidentA ? a_tiles + (nk + c) * TILE_BYTES : sb + 3 * TILE_BYTES;
+        const uint64_t da_hi = sw128_desc(a_hi + a_off);
+        const uint64_t da_lo = sw128_desc(a_lo + a_off);
+        const uint64_t db_hi = sw128_desc(sb);
+        const uint64_t db_lo = sw128_desc(sb + TILE_BYTES);
+        wgmma_fence();
+        // the chunk's small terms first, while the sum is small; the first
+        // product overwrites the partial sum
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-      if (od < bd || (od == bd && oi < bi)) {
-        bd = od;
-        bi = oi;
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t k = 2 * kk;  // 8 fp32 = 32 bytes = 2 units
+          wgmma_m64n128k8_tf32(part, da_lo + k, db_hi + k, kk != 0);
+          wgmma_m64n128k8_tf32(part, da_hi + k, db_lo + k, 1);
+        }
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk) {
+          const uint64_t k = 2 * kk;
+          wgmma_m64n128k8_tf32(part, da_hi + k, db_hi + k, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_acc(part);
+        if (signals) mbar_arrive(&empty[stage]);  // hand the stage back
+        // promote the chunk into the fp32 sum, rounded to nearest
+#pragma unroll
+        for (int i = 0; i < 64; ++i) acc[i] = c ? acc[i] + part[i] : part[i];
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // fold the tile into the running best, columns in increasing order
+      const int col0 = t * BN + 2 * (lane % 4);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + 8 * j + e;
+            const float d = 1.0f - acc[4 * j + 2 * h + e];
+            if (col < N && !(exclude_self && col == row) && d < best_d[h]) {
+              best_d[h] = d;
+              best_i[h] = col;
+            }
+          }
+        }
       }
     }
-    const long long row = m0 + sub_of(ty, i);
-    if (tx == 0 && row < M) {
-      out_idx[row] = bi;
-      out_dist[row] = bd;
+
+    // the four threads of a quad share rows: merge on (dist, idx)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float bd = best_d[h];
+      int bi = best_i[h];
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (od < bd || (od == bd && oi < bi)) {
+          bd = od;
+          bi = oi;
+        }
+      }
+      const int row = row0 + 8 * h;
+      if (lane % 4 == 0 && row < M) {
+        out_idx[row] = bi;
+        out_dist[row] = bd;
+      }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (rows, d_pad) row-major fp32, cut into 128-row x 32 boxes, 128-byte swizzle
+CUresult make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                  int rows, int d_pad) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d_pad),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d_pad) * 4};
+  const cuuint32_t box[2] = {BK, 128};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <bool kResidentA>
+int launch(const CUtensorMap (&maps)[4], void* out_idx, void* out_dist, int M,
+           int N, int nk, int exclude_self, cudaStream_t stream) {
+  auto kernel = nn1_cosine_kernel<kResidentA>;
+  const int smem = smem_bytes(kResidentA, nk);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(M + BM - 1) / BM, THREADS, smem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<long long*>(out_idx),
+      static_cast<float*>(out_dist), M, N, nk, exclude_self);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x (M, D) and y (N, D) contiguous float32, L2-normalized; out_idx (M,)
+// x_hi, x_lo (M, d_pad) and y_hi, y_lo (N, d_pad): contiguous fp32 holding
+// exact TF32 values, d_pad a multiple of 32, 16-byte aligned; out_idx (M,)
 // int64 and out_dist (M,) float32, allocated by the caller. Launches on
-// `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int nn1_cosine(const void* x, const void* y, void* out_idx,
-                          void* out_dist, int M, int N, int D,
+// `stream` and returns 0 on success, a cudaError_t, -1 for bad sizes, -2 if
+// the driver has no cuTensorMapEncodeTiled, or 10000 + CUresult if it
+// refuses a descriptor.
+extern "C" int nn1_cosine(const void* x_hi, const void* x_lo,
+                          const void* y_hi, const void* y_lo, void* out_idx,
+                          void* out_dist, int M, int N, int d_pad,
                           int exclude_self, void* stream) {
-  if (M <= 0) return 0;
-  const dim3 grid((M + BM - 1) / BM);
-  nn1_cosine_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(y),
-      static_cast<long long*>(out_idx), static_cast<float*>(out_dist), M, N,
-      D, exclude_self);
-  return static_cast<int>(cudaGetLastError());
+  if (M <= 0 || N <= 0 || d_pad <= 0 || d_pad % BK != 0) return -1;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {x_hi, x_lo, y_hi, y_lo};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult r = make_map(encode, &maps[i], ptrs[i], i < 2 ? M : N,
+                                d_pad);
+    if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
+  }
+  const int nk = d_pad / BK;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return keeps_a_resident(d_pad)
+             ? launch<true>(maps, out_idx, out_dist, M, N, nk, exclude_self, s)
+             : launch<false>(maps, out_idx, out_dist, M, N, nk, exclude_self,
+                             s);
+}
+
+// the dynamic shared memory a launch at this d_pad asks for, in bytes
+extern "C" int nn1_cosine_smem_bytes(int d_pad) {
+  return smem_bytes(keeps_a_resident(d_pad), d_pad / BK);
 }

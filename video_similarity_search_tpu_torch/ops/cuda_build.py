@@ -2,14 +2,18 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled for
 ``sm_90a`` into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the
-source and the flags, so an edited source is rebuilt), then loaded with
-``ctypes``. Only sources in the checkout are used; nothing is fetched. A
-machine with CUDA but no ``nvcc`` raises.
+source, every ``csrc/*.cuh`` header and the flags, so an edited source or
+header is rebuilt), then loaded with ``ctypes``. Only sources in the
+checkout are used; nothing is fetched. The libraries link no ``-lcuda``:
+a driver call a kernel needs (``cuTensorMapEncodeTiled``) is fetched at
+run time through ``cudaGetDriverEntryPoint``. A machine with CUDA but no
+``nvcc`` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -43,8 +47,10 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Tuple[str, str]:
     """-> (source path, versioned .so path) for ``csrc/<name>.cu``."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(os.path.basename(path).encode() + f.read())
     return src, os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 
