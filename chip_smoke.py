@@ -26,7 +26,29 @@ data, in phases that each print one JSON line:
   retrieval  k_nearest_embeddings over the embed phase's embeddings, and
              top-50 of 9,537 queries over the 240k bank
 
-then the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
+and the host data path, on the UCF config
+(configs/resnet_ucf_itercluster_flow.yaml, with only the data paths set):
+
+  host       the host's compiler, libjpeg header and library, OpenCV and
+             PIL, core count, and the port's native JPEG decoder build (the
+             decode backend, ``native`` or ``pil``, is printed loudly)
+  data       a seeded synthetic UCF-layout JPEG dataset (40 classes x 12
+             videos at 320x240, optical_u frames) under runs/chip_smoke/,
+             reused when present; loader-only clips/s of the eval train
+             loader (batch 256, >= 2048 clips) and the test loader, clips per
+             decode path, and one item of each held byte-equal to a direct
+             ClipReader.load
+  embed_loader  get_embeddings_and_labels fed by that loader with the
+             pinned side-stream upload on, then off (pageable copy in the
+             consumer): clips/s, the consumer's wait per batch, copy ms
+  cluster_step  iterative_cluster_step over the eval train loader, its files
+             held to this script's own NMI, then the triplet loader rebuilt
+             from the labels (host RandomResizedCrop); NMI/AMI timed at UCF
+             scale
+  cli        python -m video_similarity_search_tpu_torch.cli.evaluate on the
+             dataset from a .pth.tar of the smoke's model
+
+then a ``timing`` line of each phase's seconds, the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and ``{"ok": true, "device": {...}}`` as the last line. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; a path that
 did not launch its kernel fails the run, as does any failed check.
@@ -41,8 +63,10 @@ import collections
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,6 +96,16 @@ KIN_OPTS = ["MODEL.ARCH", "3dresnet", "RESNET.MODEL_DEPTH", 18,
             "RESNET.OUT_DIM", 128, "DATA.SAMPLE_SIZE", 128,
             "DATA.SAMPLE_DURATION", 16, "DATA.INPUT_CHANNEL_NUM", 3,
             "TRAIN.DATASET", "kinetics"]
+
+UCF_YAML = os.path.join(ROOT, "configs", "resnet_ucf_itercluster_flow.yaml")
+# the synthetic UCF-layout dataset: UCF-101's 320x240 frames; train videos
+# are 2 x SAMPLE_DURATION frames long, the shortest the manifest keeps
+SYN = {"classes": 40, "videos_per_class": 12, "height": 240, "width": 320,
+       "train_frames": 32, "test_frames": 64, "seed": SEED}
+LOADER_EPOCHS = 5  # 5 x 440 train clips >= 2048
+EMBED_EPOCHS = 2  # each embed pass, upload on and off
+MIN_LOADER_CLIPS = 2048
+EVAL_BATCH = 256  # the UCF config's automatic eval batch at 440 videos
 
 
 def emit(phase: str, **fields) -> None:
@@ -322,20 +356,21 @@ def fp64_referee(xn, ki, kd, pi, pd, tile: int = 512) -> dict:
                 parts["kernel"], parts["plain"])}
 
 
+def load_cfg(yaml_path: str, opts) -> object:
+    """A config through the port's own CLI parser: defaults -> YAML ->
+    opts."""
+    from video_similarity_search_tpu_torch.config import (arg_parser,
+                                                          load_config)
+
+    return load_config(arg_parser().parse_args(
+        ["--cfg", yaml_path] + [str(v) for v in opts]))
+
+
 def make_cfg():
-    from video_similarity_search_tpu_torch.config import get_cfg
-
-    cfg = get_cfg()
-    try:
-        import yaml  # noqa: F401
-
-        cfg.merge_from_file(os.path.join(
-            ROOT, "configs", "resnet_kin_itercluster_flow.yaml"))
-        source = "configs/resnet_kin_itercluster_flow.yaml"
-    except ImportError:
-        source = "merge_from_list (no pyyaml)"
-    cfg.merge_from_list(list(KIN_OPTS) + ["OUTPUT_PATH", OUT])
-    return cfg, source
+    cfg = load_cfg(os.path.join(ROOT, "configs",
+                                "resnet_kin_itercluster_flow.yaml"),
+                   list(KIN_OPTS) + ["OUTPUT_PATH", OUT])
+    return cfg, "configs/resnet_kin_itercluster_flow.yaml"
 
 
 def make_batches(rng, n_items, items_per_batch, windows, t, s, n_cls):
@@ -359,20 +394,6 @@ def make_batches(rng, n_items, items_per_batch, windows, t, s, n_cls):
     return batches
 
 
-class Timed:
-    """Iterable over batches that stamps when each batch is asked for; the
-    consumer has finished the previous batch by then (it copies the
-    embeddings to the host)."""
-
-    def __init__(self, batches):
-        self.batches, self.stamps = batches, []
-
-    def __iter__(self):
-        for b in self.batches:
-            self.stamps.append(time.perf_counter())
-            yield b
-
-
 def phase_embed():
     import torch
 
@@ -394,7 +415,7 @@ def phase_embed():
                         n_cls)
 
     torch.cuda.reset_peak_memory_stats()
-    timed = Timed(train)
+    timed = Epochs(train, 1)
     t0 = time.perf_counter()
     tr_emb, tr_lbl, tr_idx = get_embeddings_and_labels(
         model, cfg, timed, split="train", verbose=False, device="cuda")
@@ -512,6 +533,507 @@ def phase_retrieval(model, cfg, cache, bank):
          topk_ms=ms)
 
 
+# --------------------------------------------------------------------------
+# host data path: UCF config, synthetic JPEGs, loaders, clustering step, CLI
+
+def _compiles(gxx: str, source: str, args) -> bool:
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "probe.cpp")
+        with open(src, "w") as f:
+            f.write(source)
+        proc = subprocess.run([gxx, src, *args, "-o",
+                               os.path.join(tmp, "probe")],
+                              capture_output=True, text=True, timeout=120)
+        return proc.returncode == 0
+
+
+def phase_host():
+    """Host libraries the data path could use, and the native decoder's
+    build. -> the decode backend, "native" or "pil"."""
+    import PIL
+    from PIL import features
+
+    from video_similarity_search_tpu_torch.data import native_loader
+
+    gxx = shutil.which("g++")
+    header = link = False
+    if gxx:
+        header = _compiles(gxx, "#include <cstdio>\n#include <jpeglib.h>\n"
+                           "int main() { return 0; }\n", [])
+        # the library alone, declared by hand: no header needed
+        link = _compiles(gxx, 'extern "C" void* jpeg_std_error(void*);\n'
+                         "int main() { return jpeg_std_error(0) != 0; }\n",
+                         ["-ljpeg"])
+    cv2 = subprocess.run([sys.executable, "-c",
+                          "import cv2; print(cv2.__version__)"],
+                         capture_output=True, text=True, timeout=120)
+    t0 = time.perf_counter()
+    built = native_loader.available()
+    build_s = time.perf_counter() - t0
+    backend = "native" if built else "pil"
+    emit("host", cpu_count=os.cpu_count(), gxx=gxx,
+         jpeglib_h=header, ljpeg_link=link,
+         cv2=cv2.stdout.strip() if cv2.returncode == 0 else None,
+         pil=PIL.__version__,
+         pil_libjpeg_turbo=features.check_feature("libjpeg_turbo"),
+         native_decoder_built=built, native_build_s=build_s,
+         native_library=(os.path.relpath(native_loader.LIB_PATH, ROOT)
+                         if built else None),
+         native_build_log=None if built else native_loader.BUILD_LOG[-400:],
+         decoder=backend)
+    if built:
+        print("decoder: native", flush=True)
+    else:
+        msg = ("decoder: pil  <<< the native JPEG decoder did not build on "
+               "this host (libjpeg header or library missing); every RGB "
+               "clip is decoded by PIL and resized in torch >>>")
+        print(msg, flush=True)
+        print(msg, file=sys.stderr, flush=True)
+    return backend
+
+
+def _write_video(job) -> None:
+    """Frames of one synthetic video: a smooth class-coloured pattern that
+    drifts sideways ``speed`` pixels a frame (small JPEGs, real motion)."""
+    from PIL import Image
+
+    vdir, n, color, freq, phase, speed, gray = job
+    h, w = SYN["height"], SYN["width"]
+    yy, xx = np.mgrid[0:h, 0:w + speed * n].astype(np.float32)
+    wave = np.sin(xx * freq + phase) + 0.5 * np.cos(yy * freq * 1.7 + phase)
+    os.makedirs(vdir, exist_ok=True)
+    if gray:  # optical_u: one channel, TVL1 layout frame%06d.jpg
+        canvas = np.clip(128 + 60 * wave, 0, 255).astype(np.uint8)
+        name = "frame{:06d}.jpg"
+    else:
+        canvas = np.clip(128 + 80 * wave[..., None] * color, 0,
+                         255).astype(np.uint8)
+        name = "image_{:05d}.jpg"
+    for f in range(n):
+        frame = np.ascontiguousarray(canvas[:, speed * f:speed * f + w])
+        Image.fromarray(frame).save(os.path.join(vdir, name.format(f + 1)))
+
+
+def make_ucf_dataset(root: str):
+    """Seeded UCF-101-layout dataset (kenshohara JSON, <label>/<vid>/
+    image_%05d.jpg, optical_u/<vid>/frame%06d.jpg for the train videos);
+    reused when ``root`` holds one made from the same ``SYN``. -> (jpg
+    root, annotation path, optical_u root, seconds spent writing)."""
+    jpg, flow = os.path.join(root, "jpg"), os.path.join(root, "optical_u")
+    ann_path = os.path.join(root, "annotation.json")
+    marker = os.path.join(root, "done.json")
+    spec = json.dumps(SYN, sort_keys=True)
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == spec:
+                return jpg, ann_path, flow, 0.0
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SYN["seed"])
+    labels = [f"class{c:02d}" for c in range(SYN["classes"])]
+    database, jobs = {}, []
+    for label in labels:
+        color = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        freq = float(rng.uniform(0.01, 0.05))
+        for v in range(SYN["videos_per_class"]):
+            test = v == SYN["videos_per_class"] - 1
+            n = SYN["test_frames"] if test else SYN["train_frames"]
+            vid = f"v_{label}_g{v:02d}_c01"
+            phase, speed = float(rng.uniform(0, 6.28)), int(rng.integers(1, 5))
+            jobs.append((os.path.join(jpg, label, vid), n, color, freq, phase,
+                         speed, False))
+            if not test:
+                jobs.append((os.path.join(flow, vid), n, color, freq * 1.3,
+                             phase, speed, True))
+            database[vid] = {"subset": "test" if test else "training",
+                             "annotations": {"label": label,
+                                             "segment": [1, n + 2]}}
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(_write_video, jobs))
+    with open(ann_path, "w") as f:
+        json.dump({"labels": labels, "database": database}, f)
+    with open(marker, "w") as f:
+        f.write(spec)
+    return jpg, ann_path, flow, time.perf_counter() - t0
+
+
+def ucf_cfg(jpg: str, ann: str, flow: str, output: str):
+    """configs/resnet_ucf_itercluster_flow.yaml with the data paths of the
+    synthetic dataset (and OUTPUT_PATH)."""
+    return load_cfg(UCF_YAML, ["DATASET.VID_PATH", jpg,
+                               "DATASET.ANNOTATION_PATH", ann,
+                               "DATASET.OPTICAL_U_PATH", flow,
+                               "OUTPUT_PATH", output])
+
+
+def real_clips(batch) -> int:
+    counts = np.asarray(batch["window_counts"])
+    return int(counts[:int(batch["__size__"])].sum())
+
+
+class Epochs:
+    """``n`` passes over a loader (a PrefetchLoader or a list of batches)
+    as one iterable. Stamps when each batch is asked for (the consumer
+    has finished the previous one by then: it copies the embeddings to
+    the host), and gathers a PrefetchLoader's per-batch consumer waits and
+    copy events of every pass."""
+
+    def __init__(self, loader, n: int):
+        self.loader, self.n = loader, n
+        self.stamps, self.clips, self.waits, self.copies = [], [], [], []
+
+    def __iter__(self):
+        for _ in range(self.n):
+            it = iter(self.loader)
+            while True:
+                self.stamps.append(time.perf_counter())
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    break
+                self.clips.append(real_clips(batch))
+                yield batch
+            self.stamps.pop()
+            self.waits += getattr(self.loader, "wait_s", [])
+            self.copies += getattr(self.loader, "copy_events", [])
+
+    def copy_ms(self) -> float | None:
+        if not self.copies:
+            return None
+        self.copies[-1][1].synchronize()
+        return float(np.mean([a.elapsed_time(b) for a, b in self.copies]))
+
+
+def decoded(*datasets) -> dict:
+    out = collections.Counter()
+    for ds in datasets:
+        out.update(ds.reader.decoded)
+    return dict(out)
+
+
+def check_backend(backend: str, counts: dict, what: str) -> None:
+    """No RGB clip goes through PIL while the native decoder is built."""
+    pil = {k: v for k, v in counts.items() if k.startswith("pil") and v}
+    if backend == "native":
+        check(not pil, f"{what}: RGB clips decoded by PIL although the "
+              f"native decoder is built: {pil}")
+    else:
+        check(sum(pil.values()) == sum(counts.values()),
+              f"{what}: PIL backend, yet {counts}")
+
+
+def host_breakdown(ds, backend: str) -> dict:
+    """Per-clip host costs of the eval decode, one thread, median of 5:
+    PIL decode (with its DCT draft) and the torch resize, or the native
+    call; and PIL's frames/s over 640 frames at 1, 4 and 8 threads."""
+    from video_similarity_search_tpu_torch.data import native_loader
+    from video_similarity_search_tpu_torch.data.datasets import \
+        _resize_frames
+    from video_similarity_search_tpu_torch.data.loaders import (
+        ImageLoaderPIL, VideoLoader)
+
+    reader = ds.reader
+    size = reader.buffer_size
+    s0 = ds.samples[0]
+    idx = ds.tt(list(range(1, s0["num_frames"] + 1)))
+    fmt = reader.loader.image_name_formatter
+    pil = VideoLoader(fmt, ImageLoaderPIL(min_dim=size))
+
+    def median_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    frames = pil(s0["video"], idx)
+    out = {"frames_per_clip": len(idx),
+           "pil_decode_ms_per_clip": median_ms(lambda: pil(s0["video"], idx)),
+           "torch_resize_ms_per_clip": median_ms(lambda: _resize_frames(
+               frames, (size, size), keep_aspect_short_edge=size))}
+    if backend == "native":
+        paths = [os.path.join(s0["video"], fmt(i)) for i in idx]
+        out["native_decode_ms_per_clip"] = median_ms(
+            lambda: native_loader.decode_frames(paths, size, True))
+    paths = [os.path.join(s["video"], fmt(i)) for s in ds.samples[:40]
+             for i in idx]
+    one = ImageLoaderPIL(min_dim=size)
+    for threads in (1, 4, 8):
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(one, paths))
+        out[f"pil_frames_per_s_{threads}_threads"] = (
+            len(paths) / (time.perf_counter() - t0))
+    return out
+
+
+def phase_data(backend: str):
+    """Synthetic dataset, loader-only throughput and byte-equality."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data import build_data_loader
+    from video_similarity_search_tpu_torch.data.temporal import \
+        get_test_video_frame_indices
+
+    jpg, ann, flow, gen_s = make_ucf_dataset(os.path.join(OUT, "ucf_synth"))
+    cfg = ucf_cfg(jpg, ann, flow, os.path.join(OUT, "ucf"))
+    train_loader, (train_ds, _) = build_data_loader(
+        "train", cfg, triplets=False, req_train_shuffle=False,
+        drop_last=False, device="cuda")
+    test_loader, (test_ds, _) = build_data_loader(
+        "test", cfg, triplets=False, drop_last=False, batch_size=1,
+        device="cuda")
+    n_train, n_test = len(train_ds), len(test_ds)
+    check(n_train == SYN["classes"] * (SYN["videos_per_class"] - 1)
+          and n_test == SYN["classes"], f"manifests {n_train}, {n_test}")
+    check(train_loader.batch_size == EVAL_BATCH,
+          f"eval batch {train_loader.batch_size}")
+    check(train_loader.device_upload, "upload on")
+
+    rates = {}
+    for name, loader, epochs in (("train", train_loader, LOADER_EPOCHS),
+                                 ("test", test_loader, 1)):
+        passes = Epochs(loader, epochs)
+        t0 = time.perf_counter()
+        for _ in passes:
+            pass
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rates[name] = {"clips": sum(passes.clips), "seconds": secs,
+                       "clips_per_s": sum(passes.clips) / secs,
+                       "batches": len(passes.clips),
+                       "copy_ms_mean": passes.copy_ms()}
+    check(rates["train"]["clips"] >= MIN_LOADER_CLIPS,
+          f"loader-only run >= {MIN_LOADER_CLIPS} clips")
+    counts = {"train": decoded(train_ds), "test": decoded(test_ds)}
+    check_backend(backend, counts["train"], "eval train loader")
+    check_backend(backend, counts["test"], "test loader")
+    breakdown = host_breakdown(train_ds, backend)  # no producer running
+
+    # one item of each loader against a direct ClipReader.load
+    batch = next(iter(train_loader))
+    clip = batch["clip"][0].cpu().numpy()
+    s0 = train_ds.samples[0]
+    direct = train_ds.reader.load(s0, train_ds.tt(
+        list(range(1, s0["num_frames"] + 1))))
+    check(np.array_equal(clip, direct), "eval train item = ClipReader.load")
+    batch = next(iter(test_loader))
+    clips = batch["clip"].cpu().numpy()
+    t0s = test_ds.samples[0]
+    wins = get_test_video_frame_indices(t0s["num_frames"],
+                                        cfg.DATA.SAMPLE_DURATION)
+    direct = np.stack([test_ds.reader.load(t0s, w) for w in wins])
+    check(int(batch["window_counts"][0]) == len(wins) == 4
+          and np.array_equal(clips[:len(wins)], direct),
+          "test item (4 windows) = ClipReader.load")
+    emit("data", dataset={**SYN, "train_videos": n_train,
+                          "test_videos": n_test},
+         written_s=gen_s, reused=gen_s == 0.0, decoder=backend,
+         loader_only=rates, decoded_clips=counts, host_breakdown=breakdown,
+         num_workers=cfg.TRAIN.NUM_DATA_WORKERS,
+         prefetch_depth=cfg.TPU.PREFETCH_DEPTH, byte_equal_items=True)
+    return cfg, (jpg, ann, flow), train_loader, train_ds
+
+
+def phase_embed_loader(cfg, train_loader, backend: str):
+    """The embedding pass fed by the JPEG loader, upload on, then off."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data import build_data_loader
+    from video_similarity_search_tpu_torch.evaluation.embed import \
+        get_embeddings_and_labels
+    from video_similarity_search_tpu_torch.models import model_selector
+
+    torch.manual_seed(SEED)
+    model = model_selector(cfg)
+    off_loader, (off_ds, _) = build_data_loader(
+        "train", cfg, triplets=False, req_train_shuffle=False,
+        drop_last=False, device="cpu")  # batches stay on the host
+    check(not off_loader.device_upload, "upload off")
+    runs, embs = {}, {}
+    for name, loader in (("upload_on", train_loader),
+                         ("upload_off", off_loader)):
+        passes = Epochs(loader, EMBED_EPOCHS)
+        emb, _, idx = get_embeddings_and_labels(
+            model, cfg, passes, split="train", verbose=False, device="cuda")
+        t_end = time.perf_counter()
+        steady = sum(passes.clips[1:]) / (t_end - passes.stamps[1])
+        n = len(loader.dataset)
+        check(emb.shape == (EMBED_EPOCHS * n, cfg.RESNET.OUT_DIM)
+              and bool(np.isfinite(emb).all()), f"{name} embeddings")
+        check(np.array_equal(idx[:n], np.arange(n)), f"{name} order")
+        embs[name] = emb[:n]
+        runs[name] = {"clips": sum(passes.clips),
+                      "clips_per_s_steady": steady,
+                      "wait_ms_mean": 1e3 * float(np.mean(passes.waits)),
+                      "wait_ms_max": 1e3 * float(np.max(passes.waits)),
+                      "copy_ms_mean": passes.copy_ms(),
+                      "batches": len(passes.clips)}
+    a, b = (embs[k] / np.linalg.norm(embs[k], axis=1, keepdims=True)
+            for k in ("upload_on", "upload_off"))
+    max_cos = float(np.max(1.0 - np.sum(a * b, axis=1)))
+    check(max_cos < 1e-3, f"upload on vs off: cosine distance {max_cos}")
+    check_backend(backend, decoded(off_ds), "upload-off loader")
+    emit("embed_loader", arch="R3D-18", config="configs/resnet_ucf_itercluster_flow.yaml",
+         batch=train_loader.batch_size, epochs=EMBED_EPOCHS, **runs,
+         max_cos_dist_on_vs_off=max_cos)
+    return model, embs["upload_on"]
+
+
+def phase_cluster_step(cfg, model, train_loader, train_ds, backend: str):
+    import torch
+
+    from video_similarity_search_tpu_torch.data import build_data_loader
+    from video_similarity_search_tpu_torch.ops import fused_knn
+    from video_similarity_search_tpu_torch.train.driver import \
+        iterative_cluster_step
+    from video_similarity_search_tpu_torch.utils.cluster_metrics import (
+        adjusted_mutual_info, normalized_mutual_info)
+
+    cfg = cfg.clone()
+    cfg.OUTPUT_PATH = os.path.join(OUT, "cluster_step")
+    shutil.rmtree(cfg.OUTPUT_PATH, ignore_errors=True)
+    fused_knn.LAUNCHES = 0
+    t0 = time.perf_counter()
+    labels = iterative_cluster_step(model, cfg, train_loader, device="cuda")
+    step_s = time.perf_counter() - t0
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"{len(train_ds)} embeddings take FINCH's dense "
+          f"level 0, yet nn1_cosine launched {launches} times")
+    with open(os.path.join(cfg.OUTPUT_PATH, "vid_clusters.txt")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln]
+    check(len(lines) == len(train_ds), "vid_clusters.txt: one line a video")
+    check(np.array_equal(np.array(lines, np.int64), labels),
+          "vid_clusters.txt holds the returned labels in dataset order")
+    true = np.array([s["label"] for s in train_ds.samples])
+    own = nmi(true, labels)
+    check(abs(normalized_mutual_info(true, labels) - own) <= 1e-9,
+          "port NMI = this script's nmi() within 1e-9")
+    logs = os.path.join(cfg.OUTPUT_PATH, "tnet_checkpoints")
+    with open(os.path.join(logs, "NMIs.txt")) as f:
+        file_nmi = float(f.read().split()[-1])
+    check(abs(file_nmi - own) <= 5e-7, "NMIs.txt = nmi() to its 6 decimals")
+    with open(os.path.join(logs, "AMIs.txt")) as f:
+        file_ami = float(f.read().split()[-1])
+
+    # the triplet loader rebuilt from the pseudo-labels (host RRC on)
+    trip_loader, (trip_ds, _) = build_data_loader(
+        "train", cfg, triplets=True, cluster_labels=labels, device="cuda")
+    check(trip_ds.target_type == "cluster_label", "targets: cluster labels")
+    check(trip_ds.reader.rrc_size == cfg.DATA.SAMPLE_SIZE, "host RRC on")
+    t0 = time.perf_counter()
+    it, shapes = iter(trip_loader), None
+    for _ in range(2):
+        b = next(it)
+        bsz = int(b["__size__"])
+        idx = np.asarray(b["index"])
+        check(np.array_equal(np.asarray(b["targets"])[:bsz], labels[idx]),
+              "anchor targets = cluster labels of the anchor indices")
+        shapes = {k: list(b[k].shape) for k in ("anchor", "positive", "extra")
+                  if k in b}
+        for k in shapes:
+            check(shapes[k][1:] == [cfg.DATA.SAMPLE_DURATION,
+                                    cfg.DATA.SAMPLE_SIZE,
+                                    cfg.DATA.SAMPLE_SIZE, 3],
+                  f"triplet {k} clip shape {shapes[k]}")
+            check(isinstance(b[k], torch.Tensor) and b[k].is_cuda,
+                  f"triplet {k} uploaded")
+    del it
+    trip_s = time.perf_counter() - t0
+    counts = decoded(trip_ds)
+    check_backend(backend, counts, "triplet loader")
+    check(counts.get("native_rrc" if backend == "native" else "pil_rrc", 0)
+          > 0, f"host RRC decode ran: {counts}")
+
+    # NMI / AMI at UCF scale: 9,537 labels, 101 classes, ~1,000 clusters
+    rng = np.random.default_rng(SEED)
+    t_lbl = rng.integers(0, 101, 9537)
+    p_lbl = rng.integers(0, 1000, 9537)
+    t0 = time.perf_counter()
+    nmi_ucf = normalized_mutual_info(t_lbl, p_lbl)
+    nmi_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ami_ucf = adjusted_mutual_info(t_lbl, p_lbl)
+    ami_ms = (time.perf_counter() - t0) * 1e3
+    check(abs(nmi_ucf - nmi(t_lbl, p_lbl)) <= 1e-9, "NMI at UCF scale")
+    emit("cluster_step", videos=len(train_ds), step_s=step_s,
+         clusters=int(len(np.unique(labels))), nmi=own, nmi_file=file_nmi,
+         ami_file=file_ami, nn1_cosine_launches=launches,
+         triplet_batches=2, triplet_batch=trip_loader.batch_size,
+         triplet_shapes=shapes, triplet_s=trip_s,
+         triplet_decoded_clips=counts,
+         ucf_scale={"labels": 9537, "classes": 101,
+                    "clusters": int(len(np.unique(p_lbl))),
+                    "nmi_ms": nmi_ms, "ami_ms": ami_ms, "nmi": nmi_ucf,
+                    "ami": ami_ucf})
+
+
+def phase_cli(cfg, paths, model, emb_in_process):
+    """The evaluate CLI, as a user runs it, on a .pth.tar of the model; its
+    embeddings held against in-process passes of the same model."""
+    import pickle
+
+    import torch
+
+    from video_similarity_search_tpu_torch.data import build_data_loader
+    from video_similarity_search_tpu_torch.evaluation.embed import \
+        get_embeddings_and_labels
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ckpt = os.path.join(work, "r3d18_seed0.pth.tar")
+    torch.save({"state_dict": {"module." + k: v.detach().cpu()
+                               for k, v in model.state_dict().items()},
+                "epoch": 0}, ckpt)
+    out = os.path.join(work, "out")
+    cmd = [sys.executable, "-m", "video_similarity_search_tpu_torch.cli.evaluate",
+           "--cfg", UCF_YAML, "--checkpoint_path", ckpt, "--output", out,
+           "--device", "cuda", "DATASET.VID_PATH", jpg,
+           "DATASET.ANNOTATION_PATH", ann, "DATASET.OPTICAL_U_PATH", flow]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"evaluate CLI exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    with open(os.path.join(out, "tnet_checkpoints",
+                           "global_retrieval_acc.txt")) as f:
+        line = f.read().strip()
+    check(re.fullmatch(r"epoch:0 top1:[01]\.\d{4} top5:[01]\.\d{4} "
+                       r"top10:[01]\.\d{4} top20:[01]\.\d{4}", line) is not None,
+          f"global_retrieval_acc.txt line {line!r}")
+    embs = {}
+    for split in ("train", "test"):
+        with open(os.path.join(out, f"{split}_embeddings.pkl"), "rb") as f:
+            embs[split] = pickle.load(f)["embeddings"]
+    n_train = SYN["classes"] * (SYN["videos_per_class"] - 1)
+    check(embs["train"].shape == (n_train, 128)
+          and embs["test"].shape == (SYN["classes"], 128)
+          and all(bool(np.isfinite(e).all()) for e in embs.values()),
+          "CLI embeddings: shapes and finite values")
+    # the test split in-process: sliding windows averaged, as the CLI does
+    test_loader, _ = build_data_loader(
+        "test", cfg, triplets=False, drop_last=False, batch_size=1,
+        device="cuda")
+    test_in_process, _, _ = get_embeddings_and_labels(
+        model, cfg, test_loader, split="test", verbose=False, device="cuda")
+    max_cos = {}
+    for split, ref in (("train", emb_in_process), ("test", test_in_process)):
+        a = embs[split] / np.linalg.norm(embs[split], axis=1, keepdims=True)
+        b = ref / np.linalg.norm(ref, axis=1, keepdims=True)
+        max_cos[split] = float(np.max(1.0 - np.sum(a * b, axis=1)))
+        # same weights, inputs and path: only cuDNN's choice of algorithm
+        # may differ between the two processes
+        check(max_cos[split] < 1e-5,
+              f"CLI {split} embeddings vs in-process: {max_cos[split]}")
+    emit("cli", command=" ".join(cmd[1:4]) + " ...", wall_s=wall,
+         retrieval=line, max_cos_dist_vs_in_process=max_cos,
+         stdout_tail=proc.stdout.strip().splitlines()[-3:])
+
+
 def main() -> int:
     try:
         import torch
@@ -531,13 +1053,30 @@ def main() -> int:
 
     from video_similarity_search_tpu_torch.ops import fused_knn
 
-    smi, sass = phase_device()
+    seconds = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    smi, sass = run("device", phase_device)
     bank, bank_lbl = mixture(240_000, seed=0)
-    shapes = phase_kernel_nn1(smi, sass, bank)
-    model, cfg, emb4096, cache = phase_embed()
-    finch_launches = phase_cluster(bank, bank_lbl, emb4096)
-    phase_retrieval(model, cfg, cache, bank)
+    shapes = run("kernel", phase_kernel_nn1, smi, sass, bank)
+    model, cfg, emb4096, cache = run("embed", phase_embed)
+    finch_launches = run("cluster", phase_cluster, bank, bank_lbl, emb4096)
+    run("retrieval", phase_retrieval, model, cfg, cache, bank)
     check(fused_knn.LAUNCHES == 0, "retrieval launches no 1-NN kernel")
+    del bank, bank_lbl
+    backend = run("host", phase_host)
+    ucf, paths, train_loader, train_ds = run("data", phase_data, backend)
+    ucf_model, emb = run("embed_loader", phase_embed_loader, ucf,
+                         train_loader, backend)
+    run("cluster_step", phase_cluster_step, ucf, ucf_model, train_loader,
+        train_ds, backend)
+    run("cli", phase_cli, ucf, paths, ucf_model, emb)
+    emit("timing", seconds=seconds, total_s=sum(seconds.values()))
 
     main_shape = shapes[-1]
     src, replaces = KERNELS["nn1_cosine"]

@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
-no silent fall back to the CPU, and (on a CUDA machine only) the CUDA 1-NN
-kernel agrees with its plain version."""
+no silent fall back to the CPU, its own copy of the native decoder, and (on
+a CUDA machine only) the CUDA 1-NN kernel agrees with its plain version and
+the pinned side-stream upload delivers the host batches."""
 
 import ast
 import os
@@ -49,13 +50,50 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
         get_embeddings_and_labels, topk_retrieval_acc)
     x = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
     y = np.zeros(8, np.int64)
+    from video_similarity_search_tpu_torch.cli import evaluate
+    from video_similarity_search_tpu_torch.config import get_cfg
+    from video_similarity_search_tpu_torch.data import (PrefetchLoader,
+                                                        build_data_loader,
+                                                        collate_videos)
+    from video_similarity_search_tpu_torch.train.driver import \
+        iterative_cluster_step
+    cfg = get_cfg()
+    cfg.merge_from_file(os.path.join(ROOT, "configs",
+                                     "resnet_ucf_itercluster_flow.yaml"))
+    assert cfg.TPU.PREFETCH_DEVICE_PUT  # the config asks for the upload
     calls = [lambda: FINCH(x, verbose=False),
              lambda: fit_cluster(x, method="finch", verbose=False),
              lambda: topk_retrieval_acc(x, y, x, y),
-             lambda: get_embeddings_and_labels(None, None, [])]
+             lambda: get_embeddings_and_labels(None, None, []),
+             lambda: iterative_cluster_step(None, cfg, []),
+             lambda: PrefetchLoader([], 4, shuffle=False, drop_last=False,
+                                    collate=collate_videos,
+                                    device_upload=True),
+             lambda: build_data_loader("train", cfg, triplets=False),
+             lambda: evaluate.main([
+                 "--cfg", os.path.join(ROOT, "configs",
+                                       "resnet_ucf_itercluster_flow.yaml")])]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_native_decoder_is_the_ports_own_copy():
+    from video_similarity_search_tpu_torch.data import native_loader
+    jax_src = os.path.join(ROOT, "video_similarity_search_tpu", "native",
+                           "vss_loader.cpp")
+    assert os.path.dirname(native_loader.SRC) == os.path.join(PORT, "native")
+    with open(native_loader.SRC, "rb") as f, open(jax_src, "rb") as g:
+        assert f.read() == g.read()  # copied unchanged
+    assert native_loader.BUILD_DIR.startswith(PORT + os.sep)
+    assert native_loader.library_path().startswith(
+        native_loader.BUILD_DIR + os.sep)
+    if native_loader.available():  # the library mapped is the port's build
+        assert native_loader.LIB_PATH.startswith(
+            native_loader.BUILD_DIR + os.sep)
+        with open("/proc/self/maps") as f:
+            mapped = {ln.split()[-1] for ln in f if "libvss_loader" in ln}
+        assert native_loader.LIB_PATH in mapped
 
 
 @pytest.mark.gpu
@@ -85,3 +123,64 @@ def test_nn1_cosine_kernel_matches_plain_version_on_the_card():
         diff = ki != pi
         d_pick = 1.0 - (xn[diff] * yn[ki[diff]]).sum(1)
         assert bool(((d_pick - pd[diff]).abs() <= 1e-6).all())
+
+
+@pytest.mark.gpu
+def test_pinned_side_stream_upload_delivers_the_host_batches():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the upload copies to the card")
+    from video_similarity_search_tpu_torch.data import (PrefetchLoader,
+                                                        collate_triplets,
+                                                        collate_videos)
+    from video_similarity_search_tpu_torch.evaluation.embed import _pad_clips
+
+    class Videos:  # 1-4 windows a video: ragged multi-window test batches
+        def __len__(self):
+            return 11
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(i)
+            w = 1 + i % 4
+            return {"clip": rng.integers(0, 256, (w, 4, 32, 32, 3), np.uint8),
+                    "target": i % 3, "index": i}
+
+    class Triplets:
+        def __len__(self):
+            return 8
+
+        def __getitem__(self, i):
+            rng = np.random.default_rng(100 + i)
+            clip = lambda: rng.integers(0, 256, (8, 32, 32, 3), np.uint8)  # noqa: E731
+            return {"anchor": clip(), "positive": clip(), "extra": clip(),
+                    "targets": (i, i + 1), "index": i}
+
+    for ds, collate, bs, accum in ((Videos(), collate_videos, 3, 1),
+                                   (Triplets(), collate_triplets, 4, 1),
+                                   (Triplets(), collate_triplets, 4, 2)):
+        kw = dict(shuffle=False, drop_last=False, collate=collate,
+                  num_workers=2, prefetch_depth=1)
+        host = list(PrefetchLoader(ds, bs, **kw))
+        up = PrefetchLoader(ds, bs, device_upload=True, **kw)
+        up.upload_microbatch = accum
+        for _ in range(2):  # the second pass refills the pinned ring
+            dev = list(up)
+            assert len(dev) == len(host)
+            for h, d in zip(host, dev):
+                assert h.keys() == d.keys()
+                for k, v in h.items():
+                    if isinstance(v, np.ndarray) and v.nbytes >= 1 << 16:
+                        assert d[k].is_cuda
+                        want = torch.from_numpy(v)
+                        if accum > 1 and v.ndim >= 4:
+                            want = want.reshape(accum, -1, *v.shape[1:])
+                        assert torch.equal(d[k].cpu(), want), k
+                    else:  # small leaves stay on the host
+                        np.testing.assert_array_equal(np.asarray(d[k]), v)
+        assert len(up.copy_events) == len(host)
+    # the embedding pass takes an uploaded batch without copying it again
+    clips = dev[0]["anchor"]  # (2, 2, 8, 32, 32, 3): 4 x 24 KiB uploaded
+    assert clips.is_cuda
+    same = torch.as_tensor(clips).to(torch.device("cuda"))
+    assert same.data_ptr() == clips.data_ptr()
+    padded, n = _pad_clips(clips, clips.shape[0])
+    assert padded is clips and n == clips.shape[0]

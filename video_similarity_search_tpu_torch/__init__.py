@@ -9,7 +9,11 @@ never jax, flax or the JAX package. Entry points take an explicit
 
 Ported so far: the serving path — R3D-18 embedding, FINCH clustering over
 the hand-written CUDA 1-NN kernel (``csrc/nn1_cosine.cu``), and cosine
-top-k retrieval.
+top-k retrieval — and the host data path around it: the config parser,
+manifests, the JPEG loaders (the native C++ decoder ``native/vss_loader.cpp``
+or PIL), the prefetching loader with its pinned side-stream upload, the
+iterative-cluster step (``train/driver.py``) and the evaluate CLI
+(``python -m video_similarity_search_tpu_torch.cli.evaluate``).
 """
 
 __version__ = "0.1"

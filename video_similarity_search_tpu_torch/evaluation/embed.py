@@ -7,7 +7,9 @@ uint8 (B, T, H, W, C) as numpy or a tensor, ``target``, ``index``,
 ``window_counts`` and, on a padded ragged batch, ``__size__`` (the real
 item count). Batches are moved to the device, normalized there and run
 through the embed step; multi-window test videos are averaged into one
-embedding per video and padded rows are dropped on the host.
+embedding per video and padded rows are dropped on the host. A clip
+tensor already on the device (the loader's pinned upload) is used where it
+is, without a second copy.
 """
 
 from __future__ import annotations
