@@ -48,6 +48,23 @@ and the host data path, on the UCF config
   cli        python -m video_similarity_search_tpu_torch.cli.evaluate on the
              dataset from a .pth.tar of the smoke's model
 
+and the triplet pretrain, on the UCF config at full width:
+
+  train_step  R3D-18 from seed 0 on 32 anchors + 32 positives + 32 anchor2
+             = 96 pre-cropped uint8 clips from seed 0: (a) one fp32 step on
+             the card held to the CPU (2 anchors; loss, negatives,
+             augmentation) and to an fp64 CPU run (update, BN statistics);
+             (b) bf16 against fp32 and fp64 at full width (loss, gradient
+             cosine, n_triplets); (c) ms a bf16 step, split by CUDA events
+             into augment / forward+loss / backward / optimizer, clips/s,
+             peak GiB, ACCUM_STEPS 2 beside 1; (d) 30 steps on one fixed
+             batch lower the triplet loss
+  train_cli  python -m video_similarity_search_tpu_torch.cli.online_train
+             --iterative_cluster for 2 epochs on 20 classes of the synthetic
+             set (220 train, 20 validation videos), the
+             evaluate CLI on its checkpoint, a third epoch resumed from it;
+             the loader-fed clips/s beside train_step's
+
 then a ``timing`` line of each phase's seconds, the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and ``{"ok": true, "device": {...}}`` as the last line. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; a path that
@@ -102,9 +119,9 @@ UCF_YAML = os.path.join(ROOT, "configs", "resnet_ucf_itercluster_flow.yaml")
 # are 2 x SAMPLE_DURATION frames long, the shortest the manifest keeps
 SYN = {"classes": 40, "videos_per_class": 12, "height": 240, "width": 320,
        "train_frames": 32, "test_frames": 64, "seed": SEED}
-LOADER_EPOCHS = 5  # 5 x 440 train clips >= 2048
+LOADER_EPOCHS = 3  # 3 x 440 train clips (5 before the train phases)
 EMBED_EPOCHS = 2  # each embed pass, upload on and off
-MIN_LOADER_CLIPS = 2048
+MIN_LOADER_CLIPS = 1280
 EVAL_BATCH = 256  # the UCF config's automatic eval batch at 440 videos
 
 
@@ -1034,6 +1051,502 @@ def phase_cli(cfg, paths, model, emb_in_process):
          stdout_tail=proc.stdout.strip().splitlines()[-3:])
 
 
+# --------------------------------------------------------------------------
+# the triplet pretrain: the train step at full width, then the training CLI
+
+TRAIN_VIEWS = ("anchor", "positive", "extra")
+TRAIN_CLI_CLASSES = 20  # of the synthetic set's 40: 220 train videos
+CPU_ANCHORS = 2  # the fp32 step held against the CPU: 6 clips
+TIMED_STEPS = 5
+LEARN_STEPS = 30
+# bf16 against fp32 at full width. At random init the stem's weight
+# gradient, ~2/3 of the gradient's norm, sums terms that mostly cancel and
+# bf16 activations carry 8 mantissa bits into it: the cosine is ~0.92
+# while fp32 against fp64 is ~0.99999 (PERF.md, section 6)
+BF16_MIN_GRAD_COS = 0.9
+BF16_MAX_LOSS_REL = 0.05
+FP32_MIN_GRAD_COS = 0.9999  # fp32 (TF32 off) against fp64, both on the card
+# 30 steps on one fixed batch take the mean triplet loss of the last 5 to
+# at most this share of the first step's
+LEARN_MAX_RATIO = 0.75
+
+
+def triplet_batch(rng, b, t, s, n_cls, structured=False):
+    """Pre-cropped uint8 anchor / positive / extra (anchor2) clips (B, T, S,
+    S, 3) and (2B,) targets [anchor labels; positive labels].
+    ``structured``: each class has its own colour under per-clip noise,
+    so a clip's class can be learnt; otherwise uniform noise."""
+    labels = rng.integers(0, n_cls, b)
+    out = {}
+    for k in TRAIN_VIEWS:
+        if structured:
+            colors = np.random.default_rng(SEED).integers(30, 226, (n_cls, 3))
+            noise = rng.integers(-60, 61, (b, t, s, s, 3))
+            out[k] = np.clip(colors[labels][:, None, None, None, :] + noise,
+                             0, 255).astype(np.uint8)
+        else:
+            out[k] = rng.integers(0, 256, (b, t, s, s, 3), np.uint8)
+    out["targets"] = np.concatenate([labels, labels]).astype(np.int64)
+    return out
+
+
+def fresh_trainer(cfg, init, device):
+    """The seeded weights ``init`` on ``device`` with a new optimizer,
+    schedule, step and loss function."""
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train.state import make_optimizer
+    from video_similarity_search_tpu_torch.train.steps import (
+        make_triplet_loss_fn, make_triplet_train_step)
+
+    model = model_selector(cfg)
+    model.load_state_dict(init)
+    model.to(device)
+    opt, sched = make_optimizer(cfg, model.parameters())
+    step = make_triplet_train_step(cfg, model, opt, sched, device=device)
+    return model, opt, sched, step, make_triplet_loss_fn(cfg, model, device)
+
+
+def _state_keys(sd: dict, stats: bool):
+    return [k for k in sd if k.endswith(("running_mean", "running_var"))
+            == stats and not k.endswith("num_batches_tracked")]
+
+
+def max_state_diff(a: dict, b: dict, stats: bool):
+    """(largest |a - b|, its tensor's name) over the parameters (``stats``
+    False) or the BatchNorm running statistics (True) of two state
+    dicts."""
+    return max((float((a[k].float() - b[k].float()).abs().max()), k)
+               for k in _state_keys(a, stats))
+
+
+def update_rel_err(after: dict, ref_after: dict, before: dict) -> float:
+    """||u - u_ref|| / ||u_ref|| of the parameter update u = after -
+    before, over all parameters."""
+    num = den = 0.0
+    for k in _state_keys(before, False):
+        u = after[k].float() - before[k].float()
+        r = ref_after[k].float() - before[k].float()
+        num += float(((u - r) ** 2).sum())
+        den += float((r ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def step_vs_cpu(cfg, init, host):
+    """(a) One fp32 step (TF32 off) on the card against the same step on
+    the CPU: the same weights, batch, augmentation draws and Gumbel draws
+    (drawn on the CPU, copied to both), CPU_ANCHORS anchors. The loss, the
+    mined negatives and the augmented clips are held to the CPU's. The
+    parameter update and the BatchNorm statistics are held to an fp64 run
+    of the same step on the CPU (network in fp64, loss head in fp32): at
+    random init the stem's weight gradient sums ~400k terms that mostly
+    cancel, so two fp32 orders of summation differ by ~1e-3 of the update;
+    the card's fp32 must be no further from fp64 than 3x the CPU's."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import (
+        apply_augment, draw_augment_params)
+    from video_similarity_search_tpu_torch.losses.triplet import (gumbel,
+                                                                   pair_masks)
+
+    cfg32 = cfg.clone()
+    cfg32.TPU.COMPUTE_DTYPE = "float32"
+    b, s = CPU_ANCHORS, cfg.DATA.SAMPLE_SIZE
+    gen = torch.Generator().manual_seed(SEED)
+    draws = {k: draw_augment_params(gen, b) for k in TRAIN_VIEWS}
+    noise = gumbel(gen, (2 * b,) * 3)
+    labels = torch.tensor([0, 1] * (b // 2) * 2)  # two labels, a pair each
+    res = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64),
+                             ("cuda", "cuda", torch.float32)):
+        model, _, _, step, _ = fresh_trainer(cfg32, init, dev)
+        model.to(dtype)
+        batch = {k: apply_augment(
+            torch.from_numpy(host[k][:b]).to(dev),
+            {n: v.to(dev) for n, v in draws[k].items()}, s,
+            dataset=cfg.TRAIN.DATASET, pre_cropped=True).to(dtype)
+            for k in TRAIN_VIEWS}
+        batch["targets"] = labels.to(dev)
+        t0 = time.perf_counter()
+        met = step(batch, noise=noise.to(dev))
+        loss = float(met["loss"])
+        res[name] = {"loss": loss, "n": int(met["n_triplets"]),
+                     "neg": met["negatives"].cpu(),
+                     "aug": {k: v.cpu().float() for k, v in batch.items()},
+                     "sd": {k: v.detach().cpu().double()
+                            for k, v in model.state_dict().items()},
+                     "s": time.perf_counter() - t0}
+        del model, step, batch
+    c, g, ref = res["cpu"], res["cuda"], res["cpu64"]
+    valid = pair_masks(labels)[0]  # the pairs whose negative counts
+    init64 = {k: v.double() for k, v in init.items()}
+    out = {"anchors": b, "clips": 3 * b,
+           "loss_cpu": c["loss"], "loss_cuda": g["loss"],
+           "loss_cpu_fp64": ref["loss"],
+           "loss_rel_diff": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
+           "augment_max_abs_diff": max(float((g["aug"][k] - c["aug"][k])
+                                             .abs().max()) for k in TRAIN_VIEWS),
+           "param_max_abs_diff": max_state_diff(g["sd"], c["sd"], False),
+           "update_rel_err_cuda_vs_cpu": update_rel_err(g["sd"], c["sd"],
+                                                        init64),
+           "update_rel_err_cuda_vs_fp64": update_rel_err(g["sd"], ref["sd"],
+                                                         init64),
+           "update_rel_err_cpu_vs_fp64": update_rel_err(c["sd"], ref["sd"],
+                                                        init64),
+           "bn_stat_max_abs_diff_cuda_vs_fp64": max_state_diff(
+               g["sd"], ref["sd"], True),
+           "bn_stat_max_abs_diff_cpu_vs_fp64": max_state_diff(
+               c["sd"], ref["sd"], True),
+           "negatives_equal": bool(torch.equal(g["neg"][valid],
+                                               c["neg"][valid])),
+           "n_triplets": g["n"], "cpu_step_s": c["s"]}
+    check(out["augment_max_abs_diff"] <= 1e-5, "augmentation: card = CPU "
+          f"within 1e-5 ({out['augment_max_abs_diff']})")
+    check(out["loss_rel_diff"] <= 1e-4, f"fp32 step loss: card = CPU within "
+          f"1e-4 relative ({out['loss_rel_diff']})")
+    check(out["negatives_equal"] and g["n"] == c["n"] > 0,
+          "fp32 step: the same mined negatives and n_triplets")
+    err, err_cpu = (out["update_rel_err_cuda_vs_fp64"],
+                    out["update_rel_err_cpu_vs_fp64"])
+    check(err <= 3 * err_cpu + 1e-5, f"fp32 step: the card's update is within "
+          f"{err} of fp64's, the CPU's within {err_cpu} (limit: 3x)")
+    bn, bn_cpu = (out["bn_stat_max_abs_diff_cuda_vs_fp64"][0],
+                  out["bn_stat_max_abs_diff_cpu_vs_fp64"][0])
+    check(bn <= 3 * bn_cpu + 1e-6, f"fp32 step BatchNorm statistics: the "
+          f"card's within {bn} of fp64's, the CPU's within {bn_cpu}")
+    return out
+
+
+def bf16_vs_fp32(cfg, init, host):
+    """(b) The full-width bf16 forward and backward against fp32 (TF32 off)
+    and fp64 on the card: the same weights, augmented batch and Gumbel
+    draws. With the config's ``random_semi_hard`` mining a negative is
+    valid only while d_ap + margin > d_an, so a rounding near that edge
+    picks another negative; that case is reported. The precision is
+    checked with ``random_negative`` mining, whose picks depend on the
+    labels and the draws alone: the same negatives at every precision, fp32
+    held to fp64, bf16 to fp32 (loss, and the cosine of the whole
+    gradient, with the stem's share of the gradient's norm and its own
+    cosine beside it)."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+    from video_similarity_search_tpu_torch.losses.triplet import gumbel
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {k: train_augment(torch.from_numpy(host[k]).cuda(), gen,
+                              cfg.DATA.SAMPLE_SIZE, dataset=cfg.TRAIN.DATASET,
+                              pre_cropped=True) for k in TRAIN_VIEWS}
+    batch["targets"] = torch.from_numpy(host["targets"]).cuda()
+    noise = gumbel(gen, (batch["targets"].shape[0],) * 3)
+
+    def cos(a, b):
+        return float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+
+    out = {}
+    for strategy, names in (
+            (cfg.DATASET.SAMPLING_STRATEGY, ("bfloat16", "float32")),
+            ("random_negative", ("bfloat16", "float32", "float64"))):
+        res = {}
+        for name in names:
+            c = cfg.clone()
+            c.TPU.COMPUTE_DTYPE = "float32" if name == "float64" else name
+            c.DATASET.SAMPLING_STRATEGY = strategy
+            model, _, _, _, loss_fn = fresh_trainer(c, init, "cuda")
+            b = batch
+            if name == "float64":  # the network in fp64, the loss in fp32
+                model.double()
+                b = {k: v.double() if v.is_floating_point() else v
+                     for k, v in batch.items()}
+            model.train()
+            loss, aux = loss_fn(b, noise=noise)
+            loss.backward()
+            grads = [p.grad.detach().double().flatten()
+                     for p in model.parameters()]
+            res[name] = {"loss": float(loss.detach()),
+                         "n": int(aux["n_triplets"]), "neg": aux["negatives"],
+                         "stem": grads[0], "grad": torch.cat(grads)}
+            del model, loss, aux, grads
+        lo, hi = res["bfloat16"], res["float32"]
+        row = {"loss_bf16": lo["loss"], "loss_fp32": hi["loss"],
+               "loss_rel_diff": abs(lo["loss"] - hi["loss"]) / abs(hi["loss"]),
+               "grad_cosine": cos(lo["grad"], hi["grad"]),
+               "stem_grad_cosine": cos(lo["stem"], hi["stem"]),
+               "stem_share_of_grad_norm2": float(
+                   (hi["stem"].norm() / hi["grad"].norm()) ** 2),
+               "n_triplets": lo["n"],
+               "negatives_agree": float((lo["neg"] == hi["neg"])
+                                        .float().mean())}
+        if "float64" in res:
+            ref = res["float64"]
+            row.update({"loss_fp64": ref["loss"],
+                        "fp32_vs_fp64_loss_rel_diff":
+                            abs(hi["loss"] - ref["loss"]) / abs(ref["loss"]),
+                        "fp32_vs_fp64_grad_cosine": cos(hi["grad"],
+                                                        ref["grad"]),
+                        "bf16_vs_fp64_grad_cosine": cos(lo["grad"],
+                                                        ref["grad"])})
+        out[strategy] = row
+        check(lo["n"] == hi["n"] > 0, f"{strategy}: bf16 and fp32 count the "
+              "same n_triplets")
+    held = out["random_negative"]
+    check(held["negatives_agree"] == 1.0, "random_negative: the same "
+          "negatives in bf16 and fp32")
+    check(held["fp32_vs_fp64_grad_cosine"] >= FP32_MIN_GRAD_COS
+          and held["fp32_vs_fp64_loss_rel_diff"] <= 1e-5,
+          f"fp32 vs fp64: gradient cosine {held['fp32_vs_fp64_grad_cosine']}"
+          f" >= {FP32_MIN_GRAD_COS}, loss within 1e-5 relative")
+    check(held["grad_cosine"] >= BF16_MIN_GRAD_COS, "bf16 vs fp32 gradient "
+          f"cosine {held['grad_cosine']} >= {BF16_MIN_GRAD_COS}")
+    check(held["loss_rel_diff"] <= BF16_MAX_LOSS_REL, "bf16 vs fp32 loss: "
+          f"relative difference {held['loss_rel_diff']} <= {BF16_MAX_LOSS_REL}")
+    return out
+
+
+def time_steps(cfg, init, host, accum: int):
+    """(c) Median ms of the bf16 step after two warm-up steps: the whole
+    step (augmentation of the three views included) on the host clock, and
+    its split by CUDA events into augment, forward + loss, backward and
+    optimizer (the step's own body, ``make_triplet_train_step``, with
+    events between its parts)."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+    from video_similarity_search_tpu_torch.train.driver import (
+        _microbatch_leaf, step_seed)
+
+    c = cfg.clone()
+    c.TRAIN.ACCUM_STEPS = accum
+    model, opt, sched, step, loss_fn = fresh_trainer(c, init, "cuda")
+    dev_u8 = {k: torch.from_numpy(_microbatch_leaf(k, host[k], accum)
+                                  if accum > 1 else host[k]).cuda()
+              for k in TRAIN_VIEWS}
+    targets = torch.from_numpy(_microbatch_leaf("targets", host["targets"],
+                                                accum)
+                               if accum > 1 else host["targets"]).cuda()
+    gen = torch.Generator(device="cuda")
+    size, dataset = c.DATA.SAMPLE_SIZE, c.TRAIN.DATASET
+
+    def augment(i):
+        gen.manual_seed(step_seed(0, i))
+        views = {}
+        for k, v in dev_u8.items():
+            parts = [train_augment(x, gen, size, dataset=dataset,
+                                   pre_cropped=True)
+                     for x in (v if accum > 1 else [v])]
+            views[k] = torch.stack(parts) if accum > 1 else parts[0]
+        views["targets"] = targets
+        return views
+
+    for i in range(2):
+        step(augment(i), gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole = []
+    for i in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        step(augment(10 + i), gen)
+        torch.cuda.synchronize()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    split = collections.defaultdict(list)
+    for i in range(TIMED_STEPS if accum == 1 else 0):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        batch = augment(20 + i)
+        ev[1].record()
+        loss, _ = loss_fn(batch, generator=gen)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        sched.step()
+        ev[4].record()
+        ev[4].synchronize()
+        for name, a, b in (("augment", 0, 1), ("forward_loss", 1, 2),
+                           ("backward", 2, 3), ("optimizer", 3, 4)):
+            split[name].append(ev[a].elapsed_time(ev[b]))
+    clips = 3 * host["targets"].shape[0] // 2
+    out = {"accum_steps": accum, "step_ms": float(np.median(whole)),
+           "step_ms_all": whole, "clips": clips,
+           "clips_per_s": clips / (float(np.median(whole)) / 1e3),
+           "peak_mem_gib": peak}
+    if split:
+        out["split_ms"] = {k: float(np.median(v)) for k, v in split.items()}
+    del model, opt, step
+    return out
+
+
+def learning_check(cfg, init, rng):
+    """(d) LEARN_STEPS bf16 steps on one fixed, augmented batch of
+    class-coloured clips with their true labels lower the triplet loss."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+
+    b, t, s = cfg.TRAIN.BATCH_SIZE, cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    host = triplet_batch(rng, b, t, s, n_cls=8, structured=True)
+    _, _, _, step, _ = fresh_trainer(cfg, init, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {k: train_augment(torch.from_numpy(host[k]).cuda(), gen, s,
+                              dataset=cfg.TRAIN.DATASET, pre_cropped=True)
+             for k in TRAIN_VIEWS}
+    batch["targets"] = torch.from_numpy(host["targets"]).cuda()
+    losses = []
+    for i in range(LEARN_STEPS):
+        gen.manual_seed(SEED + 1 + i)
+        losses.append(step(batch, gen)["triplet_loss"])
+    losses = [float(v) for v in losses]
+    ratio = float(np.mean(losses[-5:])) / losses[0]
+    check(all(np.isfinite(losses)), "learning check: finite losses")
+    check(ratio <= LEARN_MAX_RATIO, f"learning check: the last 5 steps' mean "
+          f"triplet loss is {ratio:.3f} of the first's (<= {LEARN_MAX_RATIO})")
+    return {"steps": LEARN_STEPS, "first": losses[0],
+            "last5_mean": float(np.mean(losses[-5:])), "ratio": ratio,
+            "losses": losses}
+
+
+def phase_train_step():
+    """The triplet step at the UCF config's full width: R3D-18 from seed
+    0, 32 anchors + 32 positives + 32 anchor2 = 96 pre-cropped clips of
+    16x128x128x3 from seed 0."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+
+    cfg = load_cfg(UCF_YAML, ["OUTPUT_PATH", os.path.join(OUT, "train_step")])
+    b, t, s = cfg.TRAIN.BATCH_SIZE, cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    torch.manual_seed(SEED)
+    init = model_selector(cfg).state_dict()
+    rng = np.random.default_rng(SEED)
+    host = triplet_batch(rng, b, t, s, n_cls=16)
+    vs_cpu = step_vs_cpu(cfg, init, host)
+    torch.cuda.empty_cache()
+    vs_fp32 = bf16_vs_fp32(cfg, init, host)
+    torch.cuda.empty_cache()
+    timing = [time_steps(cfg, init, host, accum) for accum in (1, 2)]
+    torch.cuda.empty_cache()
+    learn = learning_check(cfg, init, rng)
+    emit("train_step", config="configs/resnet_ucf_itercluster_flow.yaml",
+         arch="R3D-18", clip=[t, s, s, 3], anchors=b, clips_per_step=3 * b,
+         dtype=str(cfg.TPU.COMPUTE_DTYPE),
+         strategy=cfg.DATASET.SAMPLING_STRATEGY, lr=cfg.OPTIM.LR,
+         momentum=cfg.OPTIM.MOMENTUM, fp32_card_vs_cpu=vs_cpu,
+         bf16_vs_fp32=vs_fp32, timing=timing, learning=learn)
+    return timing[0]["clips_per_s"]
+
+
+def run_cli(cmd, what: str, timeout: int = 900):
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} exit {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    return proc.stdout, wall
+
+
+def phase_train_cli(paths, step_clips_per_s: float):
+    """python -m video_similarity_search_tpu_torch.cli.online_train --cfg
+    configs/resnet_ucf_itercluster_flow.yaml --iterative_cluster on the
+    synthetic UCF set cut to its first TRAIN_CLI_CLASSES classes (their
+    test videos serve as the validation subset): 2 epochs, clustering and
+    retrieval every epoch; the evaluate CLI on the written checkpoint; then
+    a third epoch resumed from it."""
+    import torch
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(ann) as f:
+        spec = json.load(f)
+    keep = set(spec["labels"][:TRAIN_CLI_CLASSES])
+    spec["database"] = {k: v for k, v in spec["database"].items()
+                        if v["annotations"]["label"] in keep}
+    ann_test = os.path.join(work, "annotation_traintest.json")
+    with open(ann_test, "w") as f:
+        json.dump(spec, f)
+    for v in spec["database"].values():
+        if v["subset"] == "test":
+            v["subset"] = "validation"
+    ann_val = os.path.join(work, "annotation_trainval.json")
+    with open(ann_val, "w") as f:
+        json.dump(spec, f)
+    out = os.path.join(work, "out")
+    data = ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_val,
+            "DATASET.OPTICAL_U_PATH", flow, "ITERCLUSTER.INTERVAL", "1",
+            "TRAIN.RETRIEVAL_INTERVAL", "1"]
+    cli = [sys.executable, "-m",
+           "video_similarity_search_tpu_torch.cli.online_train",
+           "--cfg", UCF_YAML, "--iterative_cluster", "--output", out,
+           "--device", "cuda"]
+    stdout, wall = run_cli(cli + data + ["TRAIN.EPOCHS", "2"],
+                           "training CLI")
+    logs = os.path.join(out, "tnet_checkpoints")
+    ckpt = os.path.join(logs, "3dresnet", "checkpoint.pth.tar")
+    lines = {}
+    for name in ("NMIs.txt", "AMIs.txt", "train_loss_and_acc.txt",
+                 "val_loss_and_acc.txt", "global_retrieval_acc.txt"):
+        with open(os.path.join(logs, name)) as f:
+            lines[name] = f.read().splitlines()
+        check(len(lines[name]) == 2, f"{name}: one line an epoch")
+    losses = [float(ln.split()[-1]) for ln in lines["train_loss_and_acc.txt"]]
+    val = [[float(x) for x in ln.split()[1:]]
+           for ln in lines["val_loss_and_acc.txt"]]
+    check(all(np.isfinite(losses)) and np.isfinite(val).all(),
+          "finite train and validation losses")
+    with open(os.path.join(out, "vid_clusters.txt")) as f:
+        n_labels = len(f.read().split())
+    n_train = TRAIN_CLI_CLASSES * (SYN["videos_per_class"] - 1)
+    check(n_labels == n_train, f"vid_clusters.txt: {n_labels} labels")
+    check(os.path.exists(ckpt), "checkpoint.pth.tar written")
+    rates = [float(m) for m in re.findall(
+        r"Train set: Average loss: \S+ \(([\d.]+) clips/s", stdout)]
+    check(len(rates) == 2, f"two epoch summaries: {rates}")
+
+    # the evaluate CLI loads the written checkpoint
+    ev_out, ev_wall = run_cli(
+        [sys.executable, "-m", "video_similarity_search_tpu_torch.cli.evaluate",
+         "--cfg", UCF_YAML, "--checkpoint_path", ckpt, "--output",
+         os.path.join(work, "eval"), "--device", "cuda", "--crop", "center",
+         "DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_test,
+         "DATASET.OPTICAL_U_PATH", flow], "evaluate CLI on the checkpoint")
+    check("checkpoint: loaded" in ev_out and "kept 0 at init" in ev_out,
+          "the evaluate CLI loaded every tensor of the checkpoint")
+
+    # a third epoch, resumed from the run root
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    n_params = len(saved["optimizer"]["state"])
+    check(saved["epoch"] == 2 and n_params > 0,
+          "the checkpoint resumes at epoch 2 with momentum buffers")
+    res_out, res_wall = run_cli(
+        cli[:-2] + ["--checkpoint_path", out, "--device", "cuda"] + data
+        + ["TRAIN.EPOCHS", "3"], "resumed training CLI")
+    want = (f"resume: epoch 2, best_prec1 {saved['best_prec1']}, optimizer "
+            f"state for {n_params}/{n_params} parameters, schedule count "
+            f"{saved['lr_schedule']['count']}")
+    check(want in res_out and "WARNING: restore" not in res_out,
+          f"resumed with the saved momentum buffers ({want!r})")
+    with open(os.path.join(logs, "train_loss_and_acc.txt")) as f:
+        after = f.read().splitlines()
+    check(len(after) == 3 and after[-1].startswith("epoch:2 "),
+          "the resumed run trained epoch 2 only")
+    check(torch.load(ckpt, map_location="cpu",
+                     weights_only=False)["epoch"] == 3, "epoch 3 saved")
+    emit("train_cli", command=" ".join(cli[1:6]) + " ...", epochs=2,
+         wall_s=wall, train_videos=n_train, val_videos=TRAIN_CLI_CLASSES,
+         train_loss=losses, val_lines=lines["val_loss_and_acc.txt"],
+         nmi=lines["NMIs.txt"], retrieval=lines["global_retrieval_acc.txt"],
+         loader_fed_triplets_per_s=rates,
+         loader_fed_clips_per_s=[3 * r for r in rates],
+         train_step_clips_per_s=step_clips_per_s,
+         evaluate_wall_s=ev_wall, resume_wall_s=res_wall,
+         resume_line=want, stdout_tail=stdout.strip().splitlines()[-3:])
+
+
 def main() -> int:
     try:
         import torch
@@ -1076,7 +1589,13 @@ def main() -> int:
     run("cluster_step", phase_cluster_step, ucf, ucf_model, train_loader,
         train_ds, backend)
     run("cli", phase_cli, ucf, paths, ucf_model, emb)
-    emit("timing", seconds=seconds, total_s=sum(seconds.values()))
+    del ucf_model, train_loader
+    step_rate = run("train_step", phase_train_step)
+    run("train_cli", phase_train_cli, paths, step_rate)
+    emit("timing", seconds=seconds, total_s=sum(seconds.values()),
+         notes="the data phase reads 3 epochs of the eval train loader "
+               "(5 before the train_step and train_cli phases); train_cli "
+               "trains on 20 of the synthetic set's 40 classes")
 
     main_shape = shapes[-1]
     src, replaces = KERNELS["nn1_cosine"]

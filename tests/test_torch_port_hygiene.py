@@ -1,8 +1,11 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
-no silent fall back to the CPU, its own copy of the native decoder, and (on
-a CUDA machine only) the CUDA 1-NN kernel agrees with its plain version and
-the pinned side-stream upload delivers the host batches."""
+no silent fall back to the CPU (the serving and the training entry points
+alike), its own copy of the native decoder, and (on a CUDA machine only)
+the CUDA 1-NN kernel agrees with its plain version, the pinned side-stream
+upload delivers the host batches, and the triplet step on the card equals
+the step on the CPU."""
 
+import argparse
 import ast
 import os
 
@@ -55,8 +58,13 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
     from video_similarity_search_tpu_torch.data import (PrefetchLoader,
                                                         build_data_loader,
                                                         collate_videos)
-    from video_similarity_search_tpu_torch.train.driver import \
-        iterative_cluster_step
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.evaluation import validate
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train import (
+        make_optimizer, make_triplet_train_step)
+    from video_similarity_search_tpu_torch.train.driver import (
+        iterative_cluster_step, train)
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(ROOT, "configs",
                                      "resnet_ucf_itercluster_flow.yaml"))
@@ -72,7 +80,16 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
              lambda: build_data_loader("train", cfg, triplets=False),
              lambda: evaluate.main([
                  "--cfg", os.path.join(ROOT, "configs",
-                                       "resnet_ucf_itercluster_flow.yaml")])]
+                                       "resnet_ucf_itercluster_flow.yaml")]),
+             lambda: online_train.main([
+                 "--cfg", os.path.join(ROOT, "configs",
+                                       "resnet_ucf_itercluster_flow.yaml"),
+                 "--iterative_cluster"]),
+             lambda: train(argparse.Namespace(), cfg),
+             lambda: make_triplet_train_step(cfg, model, *opt),
+             lambda: validate(model, cfg, [])]
+    model = model_selector(cfg)
+    opt = make_optimizer(cfg, model.parameters())
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -184,3 +201,78 @@ def test_pinned_side_stream_upload_delivers_the_host_batches():
     assert same.data_ptr() == clips.data_ptr()
     padded, n = _pad_clips(clips, clips.shape[0])
     assert padded is clips and n == clips.shape[0]
+
+
+@pytest.mark.gpu
+def test_triplet_step_on_the_card_matches_the_cpu():
+    """One fp32 step on the card and on the CPU from the same weights,
+    augmentation draws and Gumbel draws: the same loss (1e-4 relative) and
+    negatives, and parameter updates within 1e-2 (relative) of an fp64 CPU
+    step's. cuDNN's fp32 convolutions sum in other orders than the CPU's
+    (their update sits ~100x further from fp64 on this net, whose stem
+    weight gradient cancels heavily); TF32 convolutions, run here as the
+    control, land beyond the bar."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the step runs on the card")
+    from video_similarity_search_tpu_torch.config import get_cfg
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+    from video_similarity_search_tpu_torch.losses.triplet import gumbel
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train import (
+        make_optimizer, make_triplet_train_step)
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "3dresnet", "RESNET.MODEL_DEPTH", 10,
+                         "RESNET.NO_MAX_POOl", True, "RESNET.HIDDEN_LAYER",
+                         32, "RESNET.OUT_DIM", 8, "DATA.SAMPLE_DURATION", 4,
+                         "DATA.SAMPLE_SIZE", 32, "TPU.COMPUTE_DTYPE",
+                         "float32", "LOSS.LOCAL_LOCAL_CONTRAST", True,
+                         "DATASET.SAMPLING_STRATEGY", "random_semi_hard",
+                         "OPTIM.LR", 0.1])
+    torch.manual_seed(0)
+    init = model_selector(cfg).state_dict()
+    rng = np.random.default_rng(0)
+    clips = {k: torch.from_numpy(rng.integers(0, 256, (4, 4, 40, 40, 3),
+                                              np.uint8))
+             for k in ("anchor", "positive", "extra")}
+    noise = gumbel(torch.Generator().manual_seed(1), (8, 8, 8))
+    out = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64),
+                             ("cuda", "cuda", torch.float32),
+                             ("cuda_tf32", "cuda", torch.float32)):
+        model = model_selector(cfg)
+        model.load_state_dict(init)
+        step = make_triplet_train_step(cfg, model,
+                                       *make_optimizer(cfg, model.parameters()),
+                                       device=dev)
+        model.to(dtype)
+        gen = torch.Generator().manual_seed(2)  # augmentation draws on the CPU
+        batch = {k: train_augment(v, gen, 32).to(dev, dtype)
+                 for k, v in clips.items()}
+        batch["targets"] = torch.tensor([0, 0, 1, 1] * 2, device=dev)
+        torch.backends.cudnn.allow_tf32 = name == "cuda_tf32"
+        try:
+            met = step(batch, noise=noise.to(dev))
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        out[name] = (float(met["loss"]), met["negatives"].cpu(),
+                     {k: v.detach().cpu().double()
+                      for k, v in model.state_dict().items()})
+
+    def update_err(name):
+        num = den = 0.0
+        for k, p in init.items():
+            if k.endswith(("running_mean", "running_var",
+                           "num_batches_tracked")):
+                continue
+            u = out[name][2][k] - p.double()
+            ref = out["cpu64"][2][k] - p.double()
+            num += float(((u - ref) ** 2).sum())
+            den += float((ref ** 2).sum())
+        return (num / den) ** 0.5
+
+    errs = {k: update_err(k) for k in ("cpu", "cuda", "cuda_tf32")}
+    print("fp32 update, relative distance from fp64:", errs)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    assert errs["cpu"] <= 1e-3 and errs["cuda"] <= 1e-2 < errs["cuda_tf32"]

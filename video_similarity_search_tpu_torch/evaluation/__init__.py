@@ -4,6 +4,7 @@ from .knn import k_nearest_embeddings
 from .retrieval import (TOPK_DEFAULT, TOPK_EXTENDED, coclr_retrieval_acc,
                         get_distance_matrix, iic_retrieval_acc,
                         local_batch_retrieval_acc, topk_retrieval_acc)
+from .validate import make_validate_step, validate
 
 __all__ = [
     "cache_embeddings",
@@ -17,4 +18,6 @@ __all__ = [
     "iic_retrieval_acc",
     "local_batch_retrieval_acc",
     "topk_retrieval_acc",
+    "make_validate_step",
+    "validate",
 ]

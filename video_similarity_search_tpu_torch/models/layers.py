@@ -43,11 +43,45 @@ class Conv3d(nn.Conv3d):
                                 nonlinearity="relu")
 
 
-class BatchNorm(nn.BatchNorm3d):
+class _FlaxRunningVar:
+    """Train-mode BatchNorm with flax's running statistics (ROADMAP hazard
+    H1). Both packages normalize with the biased batch variance; flax
+    (``momentum=0.9``, the JAX package's ``layers.py:76``) then updates
+    ``ra_var = 0.9 ra_var + 0.1 var`` with that same biased variance, where
+    torch puts in the unbiased ``var * n / (n - 1)``. The forward runs
+    torch's fused ``F.batch_norm`` (statistics accumulated in float32, also
+    for a bf16 input under autocast, as flax takes them on a float32 copy)
+    and then rewrites the C-length running variance to flax's value.
+    Eval mode is torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        self._check_input_dim(x)
+        self.num_batches_tracked.add_(1)
+        n = x.numel() // x.shape[1]
+        # torch updates this copy in place (autograd keeps it for the
+        # backward pass, so the buffer itself is written only below)
+        var = self.running_var.clone()
+        y = F.batch_norm(x, self.running_mean, var, self.weight, self.bias,
+                         True, self.momentum, self.eps)
+        with torch.no_grad():
+            # torch wrote keep + m var n/(n-1); flax wants keep + m var
+            keep = self.running_var * (1.0 - self.momentum)
+            self.running_var.copy_((var - keep) * ((n - 1) / n) + keep)
+        return y
+
+
+class BatchNorm(_FlaxRunningVar, nn.BatchNorm3d):
     """BatchNorm over (B, C, T, H, W) with eps 1e-5 and torch momentum 0.1
-    (flax momentum 0.9). This slice runs it in eval mode only; the
-    running-variance update differs from flax in train mode (ROADMAP
-    hazard H1) and is settled with the training slice."""
+    (flax momentum 0.9); train mode keeps flax's running variance."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+
+class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
+    """The projection head's BatchNorm over (B, C), as ``BatchNorm``."""
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
@@ -71,7 +105,7 @@ class ProjectionHead(nn.Module):
     def __init__(self, in_dim: int, hidden: int = 2048, out_dim: int = 128):
         super().__init__()
         self.fc1 = nn.Linear(in_dim, hidden)
-        self.bn_proj = nn.BatchNorm1d(hidden, eps=1e-5, momentum=0.1)
+        self.bn_proj = BatchNorm1d(hidden)
         self.fc2 = nn.Linear(hidden, out_dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

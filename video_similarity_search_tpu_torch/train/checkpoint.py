@@ -9,12 +9,22 @@ returns a state_dict with the kenshohara reference keys that the port's
 ``load_torch_checkpoint`` reads a reference ``.pth.tar`` (the JAX
 package's ``train/checkpoint.py:223-241``) and ``load_encoder_state`` puts
 it into the port's ``ResNet3D``, whose parameters carry the same names.
+
+``save_checkpoint`` / ``restore_train_state`` / ``resolve_checkpoint`` are
+the training run's own checkpoints (the JAX package's
+``train/checkpoint.py:105-216`` and ``driver.py::_resolve_checkpoint``).
+The port cannot write orbax, so it writes the reference's format, which
+the JAX package's ``load_checkpoint`` reads too: ``{"epoch": epoch + 1,
+"best_prec1", "state_dict"}`` with the reference key names, plus the
+optimizer's and the learning-rate schedule's state.
 """
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Any, Dict, Mapping
+import shutil
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -137,3 +147,148 @@ def load_encoder_state(model: torch.nn.Module,
                        f"{backbone[:8]} ({len(backbone)} in all)")
     model.load_state_dict(loaded, strict=False)
     return {"loaded": sorted(loaded), "skipped": skipped, "missing": missing}
+
+
+# --------------------------------------------------------------------------
+# the training run's checkpoints
+
+CHECKPOINT = "checkpoint.pth.tar"
+
+
+def checkpoint_dir(output_path: str, arch: str) -> str:
+    return os.path.join(output_path, "tnet_checkpoints", arch)
+
+
+def save_checkpoint(output_path: str, arch: str, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, schedule, epoch: int,
+                    best_prec1: float, is_best: bool = False,
+                    keep_every: int = 200) -> str:
+    """Save under <out>/tnet_checkpoints/<arch>/ (reference
+    model_utils.py:161-176, online_train.py:749-776): ``checkpoint.pth.tar``
+    (overwritten), a ``model_best.pth.tar`` copy when ``is_best``, and
+    ``checkpoint_<epoch + 1>.pth.tar`` every ``keep_every`` epochs. ->
+    the checkpoint's path."""
+    base = checkpoint_dir(output_path, arch)
+    os.makedirs(base, exist_ok=True)
+    payload = {
+        "epoch": epoch + 1,  # the reference stores the epoch to resume at
+        "best_prec1": float(best_prec1),
+        "state_dict": {k: v.detach().cpu()
+                       for k, v in model.state_dict().items()},
+        "optimizer": optimizer.state_dict(),
+        "lr_schedule": schedule.state_dict(),
+    }
+    path = os.path.join(base, CHECKPOINT)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)  # a preempted save leaves the last one whole
+    if is_best:
+        shutil.copyfile(path, os.path.join(base, "model_best.pth.tar"))
+    if keep_every and (epoch + 1) % keep_every == 0:
+        shutil.copyfile(path, os.path.join(
+            base, f"checkpoint_{epoch + 1}.pth.tar"))
+    return path
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The raw payload of a ``.pth.tar`` on the CPU (unpickled: trusted
+    files only)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def _restore_optimizer(optimizer: torch.optim.Optimizer, saved: Optional[dict],
+                       verbose: bool = True) -> int:
+    """Pour a saved ``optimizer.state_dict()`` into the live optimizer,
+    parameter by parameter. A parameter whose saved state is missing or
+    whose tensors do not match its shape keeps a fresh state, loudly (as
+    the JAX package's ``_pour_flat``). The live hyperparameters (from the
+    config) stay. -> the count of parameters kept fresh."""
+    live = optimizer.state_dict()
+    live_ids = [i for g in live["param_groups"] for i in g["params"]]
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    saved_state, saved_ids = {}, []
+    if saved is not None:
+        saved_state = saved.get("state", {})
+        saved_ids = [i for g in saved["param_groups"] for i in g["params"]]
+    state, fresh = {}, []
+    for pos, (pid, p) in enumerate(zip(live_ids, params)):
+        st = saved_state.get(saved_ids[pos]) if pos < len(saved_ids) else None
+        ok = st is not None and all(
+            not isinstance(v, torch.Tensor) or v.ndim == 0
+            or tuple(v.shape) == tuple(p.shape) for v in st.values())
+        if ok:
+            state[pid] = st
+        else:
+            fresh.append(pos)
+    optimizer.load_state_dict({"state": state,
+                               "param_groups": live["param_groups"]})
+    if fresh and verbose:
+        print(f"WARNING: restore[optimizer]: {len(fresh)}/{len(params)} "
+              "parameters had no matching saved state and start fresh "
+              f"(first: parameter {fresh[0]}); their momentum is lost")
+    return len(fresh)
+
+
+def restore_train_state(model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer, schedule,
+                        payload: Mapping, verbose: bool = True
+                        ) -> Tuple[int, float]:
+    """Apply a loaded payload: the weights and BatchNorm statistics (names
+    and shapes as ``load_encoder_state`` matches them), the optimizer's
+    state (``_restore_optimizer``) and the schedule's count. A reference
+    checkpoint without an optimizer restores weights only, with a warning.
+    -> (start epoch, best_prec1) (reference model_utils.py:180-211)."""
+    sd = {}
+    for k, v in payload.get("state_dict", payload).items():
+        sd[k[len("module."):] if k.startswith("module.") else k] = v
+    load_encoder_state(model, sd, verbose=verbose)
+    n_params = sum(len(g["params"]) for g in optimizer.param_groups)
+    fresh = n_params
+    if "optimizer" in payload:
+        fresh = _restore_optimizer(optimizer, payload["optimizer"], verbose)
+    elif verbose:
+        print("WARNING: restore[optimizer]: the checkpoint holds no "
+              "optimizer state; momentum starts fresh")
+    if "lr_schedule" in payload:
+        schedule.load_state_dict(payload["lr_schedule"])
+    epoch = int(payload.get("epoch", 0))
+    best = float(payload.get("best_prec1", 0.0))
+    if verbose:
+        print(f"resume: epoch {epoch}, best_prec1 {best}, optimizer state "
+              f"for {n_params - fresh}/{n_params} parameters, schedule "
+              f"count {schedule.count}")
+    return epoch, best
+
+
+def resolve_checkpoint(path: Optional[str], arch: str,
+                       allow_missing: bool = False) -> Optional[str]:
+    """Map a --checkpoint_path argument to a loadable checkpoint file (the
+    JAX ``driver._resolve_checkpoint``): a ``.pth.tar`` itself, or a run
+    root holding ``tnet_checkpoints/<arch>/checkpoint.pth.tar``.
+    ``allow_missing`` (--vector, where the path is the stable root that may
+    not have been written yet) returns None for a missing target;
+    otherwise a missing path raises instead of silently training from
+    scratch. An orbax directory of the JAX package raises: it cannot be
+    read without JAX."""
+    if not path:
+        return None
+    nested = os.path.join(checkpoint_dir(path, arch), CHECKPOINT)
+    if os.path.isdir(path):
+        if os.path.exists(nested):
+            return nested
+        if os.path.exists(os.path.join(path, "_METADATA")):
+            raise ValueError(
+                f"{path} is an orbax checkpoint of the JAX package; the port "
+                "reads torch .pth.tar checkpoints only")
+        if allow_missing:
+            return None
+        raise FileNotFoundError(
+            f"--checkpoint_path {path!r} contains no checkpoint (looked for "
+            f"{nested})")
+    if os.path.exists(path):
+        return path
+    if allow_missing:
+        return None
+    raise FileNotFoundError(
+        f"--checkpoint_path {path!r} does not exist (a missing path is only "
+        "tolerated under --vector, the preemptible-resume case)")
