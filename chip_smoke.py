@@ -60,9 +60,9 @@ and the triplet pretrain, on the UCF config at full width:
              peak GiB, ACCUM_STEPS 2 beside 1; (d) 30 steps on one fixed
              batch lower the triplet loss
   train_cli  python -m video_similarity_search_tpu_torch.cli.online_train
-             --iterative_cluster for 2 epochs on 20 classes of the synthetic
+             --iterative_cluster for an epoch on 20 classes of the synthetic
              set (220 train, 20 validation videos), the
-             evaluate CLI on its checkpoint, a third epoch resumed from it;
+             evaluate CLI on its checkpoint, a second epoch resumed from it;
              the loader-fed clips/s beside train_step's
 
 and the classification path of cli/coclr_classify.py at its defaults:
@@ -84,6 +84,29 @@ and the classification path of cli/coclr_classify.py at its defaults:
              video_similarity_search_tpu_torch.cli.coclr_classify, then in
              this process ft for 1 from its model_best.pth.tar, the ten-crop
              test and --retrieval on it; loader-fed clips/s
+
+and the fifth slice, the rest of SLIC's single-device pretrain:
+
+  kmeans     kmeans and spherical_kmeans over the 240,000 x 128 mixture with
+             K = 1000, 10 restarts of 50 iterations, timed; the float32 run
+             held to a plain float64 Lloyd run from the same initial points
+             on 20k of them; iterative_cluster_step with ITERCLUSTER.METHOD
+             kmeans on the UCF set (after cluster_step); 0 nn1_cosine
+             launches
+  train_options  the train_step cell once per option (LOSS.MEM_TRIPLET with
+             640 slots, RESNET.ATTENTION, TPU.STEM_S2D, TPU.REMAT on all
+             stages and on stage 1): one fp32 step on the card held to the
+             CPU and to fp64 as in train_step (a), ms / clips/s / peak GiB
+             of a bf16 step; the s2d stem's forward ms beside the 7x7
+             stem's and its output against the 7x7 one
+  contrastive  LOSS.TYPE contrastive at bench.py:276's shape (R3D-18, 64
+             anchors of 16x128x128, 1024 negatives, 128-d features, 9,537
+             videos): ms / clips/s / peak GiB of a bf16 step for rgb, res,
+             intra-negative and MoCo; one fp32 step against fp64; 30 steps
+             on fixed data lower the loss; the training CLI with
+             LOSS.TYPE contrastive and k-means on 10 classes (lr 0.001) for
+             an epoch, then a resumed second whose banks must be the saved
+             ones, byte-equal
 
 then a ``timing`` line of each phase's seconds, the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and ``{"ok": true, "device": {...}}`` as the last line. Each kernel's launch
@@ -1081,6 +1104,7 @@ def phase_cli(cfg, paths, model, emb_in_process):
 
 TRAIN_VIEWS = ("anchor", "positive", "extra")
 TRAIN_CLI_CLASSES = 20  # of the synthetic set's 40: 220 train videos
+TRAIN_CLI_EPOCHS = 1  # then one resumed (was 2 and a third)
 CPU_ANCHORS = 2  # the fp32 step held against the CPU: 6 clips
 TIMED_STEPS = 5
 LEARN_STEPS = 30
@@ -1121,18 +1145,22 @@ def triplet_batch(rng, b, t, s, n_cls, structured=False):
 
 def fresh_trainer(cfg, init, device):
     """The seeded weights ``init`` on ``device`` with a new optimizer,
-    schedule, step and loss function."""
+    schedule, step and loss function (and, with ``LOSS.MEM_TRIPLET``, a
+    new seeded bank that both advance)."""
     from video_similarity_search_tpu_torch.models import model_selector
     from video_similarity_search_tpu_torch.train.state import make_optimizer
     from video_similarity_search_tpu_torch.train.steps import (
-        make_triplet_loss_fn, make_triplet_train_step)
+        make_banks, make_triplet_loss_fn, make_triplet_train_step)
 
     model = model_selector(cfg)
     model.load_state_dict(init)
     model.to(device)
     opt, sched = make_optimizer(cfg, model.parameters())
-    step = make_triplet_train_step(cfg, model, opt, sched, device=device)
-    return model, opt, sched, step, make_triplet_loss_fn(cfg, model, device)
+    bank = make_banks(cfg, 0).get("mem_triplet")
+    step = make_triplet_train_step(cfg, model, opt, sched, device=device,
+                                   bank=bank)
+    return (model, opt, sched, step,
+            make_triplet_loss_fn(cfg, model, device, bank))
 
 
 def _state_keys(sd: dict, stats: bool):
@@ -1160,7 +1188,7 @@ def update_rel_err(after: dict, ref_after: dict, before: dict) -> float:
     return (num / den) ** 0.5
 
 
-def step_vs_cpu(cfg, init, host):
+def step_vs_cpu(cfg, init, host, cpu_runs=None):
     """(a) One fp32 step (TF32 off) on the card against the same step on
     the CPU: the same weights, batch, augmentation draws and Gumbel draws
     (drawn on the CPU, copied to both), CPU_ANCHORS anchors. The loss, the
@@ -1169,7 +1197,10 @@ def step_vs_cpu(cfg, init, host):
     of the same step on the CPU (network in fp64, loss head in fp32): at
     random init the stem's weight gradient sums ~400k terms that mostly
     cancel, so two fp32 orders of summation differ by ~1e-3 of the update;
-    the card's fp32 must be no further from fp64 than 3x the CPU's."""
+    the card's fp32 must be no further from fp64 than 3x the CPU's.
+    ``cpu_runs``: a dict that keeps the two CPU runs for the next call of
+    the same arithmetic (remat on all stages and on stage 1), which then
+    runs the card's step only."""
     import torch
 
     from video_similarity_search_tpu_torch.data.augment import (
@@ -1182,12 +1213,16 @@ def step_vs_cpu(cfg, init, host):
     b, s = CPU_ANCHORS, cfg.DATA.SAMPLE_SIZE
     gen = torch.Generator().manual_seed(SEED)
     draws = {k: draw_augment_params(gen, b) for k in TRAIN_VIEWS}
-    noise = gumbel(gen, (2 * b,) * 3)
+    # the miner's candidates: the batch, or the LOSS.MEM_TRIPLET bank
+    n_cand = cfg.LOSS.MEM_TRIPLET_K if cfg.LOSS.MEM_TRIPLET else 2 * b
+    noise = gumbel(gen, (2 * b, 2 * b, n_cand))
     labels = torch.tensor([0, 1] * (b // 2) * 2)  # two labels, a pair each
-    res = {}
+    res = {} if cpu_runs is None else cpu_runs
     for name, dev, dtype in (("cpu", "cpu", torch.float32),
                              ("cpu64", "cpu", torch.float64),
                              ("cuda", "cuda", torch.float32)):
+        if name in res and name != "cuda":
+            continue
         model, _, _, step, _ = fresh_trainer(cfg32, init, dev)
         model.to(dtype)
         batch = {k: apply_augment(
@@ -1206,7 +1241,7 @@ def step_vs_cpu(cfg, init, host):
                             for k, v in model.state_dict().items()},
                      "s": time.perf_counter() - t0}
         del model, step, batch
-    c, g, ref = res["cpu"], res["cuda"], res["cpu64"]
+    c, g, ref = res["cpu"], res.pop("cuda"), res["cpu64"]
     valid = pair_masks(labels)[0]  # the pairs whose negative counts
     init64 = {k: v.double() for k, v in init.items()}
     out = {"anchors": b, "clips": 3 * b,
@@ -1228,7 +1263,8 @@ def step_vs_cpu(cfg, init, host):
                c["sd"], ref["sd"], True),
            "negatives_equal": bool(torch.equal(g["neg"][valid],
                                                c["neg"][valid])),
-           "n_triplets": g["n"], "cpu_step_s": c["s"]}
+           "n_triplets": g["n"], "cpu_step_s": c["s"],
+           "cpu_fp64_step_s": ref["s"]}
     check(out["augment_max_abs_diff"] <= 1e-5, "augmentation: card = CPU "
           f"within 1e-5 ({out['augment_max_abs_diff']})")
     check(out["loss_rel_diff"] <= 1e-4, f"fp32 step loss: card = CPU within "
@@ -1332,11 +1368,11 @@ def bf16_vs_fp32(cfg, init, host):
     return out
 
 
-def time_steps(cfg, init, host, accum: int):
+def time_steps(cfg, init, host, accum: int, split: bool = True):
     """(c) Median ms of the bf16 step after two warm-up steps: the whole
     step (augmentation of the three views included) on the host clock, and
-    the device ms of its parts (``device_split_ms`` over the real step:
-    augment, forward + loss, backward, optimizer)."""
+    with ``split`` the device ms of its parts (``device_split_ms`` over
+    the real step: augment, forward + loss, backward, optimizer)."""
     import torch
     from torch.profiler import record_function
 
@@ -1388,7 +1424,7 @@ def time_steps(cfg, init, host, accum: int):
         step(batch, gen)
 
     split = (device_split_ms(one, TIMED_STEPS, ("augment",) + RANGES)
-             if accum == 1 else None)
+             if accum == 1 and split else None)
     clips = 3 * host["targets"].shape[0] // 2
     out = {"accum_steps": accum, "step_ms": float(np.median(whole)),
            "step_ms_all": whole, "clips": clips,
@@ -1469,22 +1505,15 @@ def run_cli(cmd, what: str, timeout: int = 900):
     return proc.stdout, wall
 
 
-def phase_train_cli(paths, step_clips_per_s: float):
-    """python -m video_similarity_search_tpu_torch.cli.online_train --cfg
-    configs/resnet_ucf_itercluster_flow.yaml --iterative_cluster on the
-    synthetic UCF set cut to its first TRAIN_CLI_CLASSES classes (their
-    test videos serve as the validation subset): 2 epochs, clustering and
-    retrieval every epoch; the evaluate CLI on the written checkpoint; then
-    a third epoch resumed from it."""
-    import torch
-
-    jpg, ann, flow = paths
-    work = os.path.join(OUT, "train_cli")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
+def train_cli_annotations(ann: str, work: str,
+                          classes: int = TRAIN_CLI_CLASSES):
+    """The synthetic set's annotation cut to its first ``classes``
+    classes, written to ``work`` twice: as it is, and with the test videos
+    as the validation subset (the set has none). -> (test, validation)
+    paths."""
     with open(ann) as f:
         spec = json.load(f)
-    keep = set(spec["labels"][:TRAIN_CLI_CLASSES])
+    keep = set(spec["labels"][:classes])
     spec["database"] = {k: v for k, v in spec["database"].items()
                         if v["annotations"]["label"] in keep}
     ann_test = os.path.join(work, "annotation_traintest.json")
@@ -1496,6 +1525,23 @@ def phase_train_cli(paths, step_clips_per_s: float):
     ann_val = os.path.join(work, "annotation_trainval.json")
     with open(ann_val, "w") as f:
         json.dump(spec, f)
+    return ann_test, ann_val
+
+
+def phase_train_cli(paths, step_clips_per_s: float):
+    """python -m video_similarity_search_tpu_torch.cli.online_train --cfg
+    configs/resnet_ucf_itercluster_flow.yaml --iterative_cluster on the
+    synthetic UCF set cut to its first TRAIN_CLI_CLASSES classes (their
+    test videos serve as the validation subset): TRAIN_CLI_EPOCHS epochs,
+    clustering and retrieval every epoch; the evaluate CLI on the written
+    checkpoint; then one more epoch resumed from it."""
+    import torch
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "train_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ann_test, ann_val = train_cli_annotations(ann, work)
     out = os.path.join(work, "out")
     data = ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_val,
             "DATASET.OPTICAL_U_PATH", flow, "ITERCLUSTER.INTERVAL", "1",
@@ -1504,7 +1550,8 @@ def phase_train_cli(paths, step_clips_per_s: float):
            "video_similarity_search_tpu_torch.cli.online_train",
            "--cfg", UCF_YAML, "--iterative_cluster", "--output", out,
            "--device", "cuda"]
-    stdout, wall = run_cli(cli + data + ["TRAIN.EPOCHS", "2"],
+    n_ep = TRAIN_CLI_EPOCHS
+    stdout, wall = run_cli(cli + data + ["TRAIN.EPOCHS", str(n_ep)],
                            "training CLI")
     logs = os.path.join(out, "tnet_checkpoints")
     ckpt = os.path.join(logs, "3dresnet", "checkpoint.pth.tar")
@@ -1513,7 +1560,7 @@ def phase_train_cli(paths, step_clips_per_s: float):
                  "val_loss_and_acc.txt", "global_retrieval_acc.txt"):
         with open(os.path.join(logs, name)) as f:
             lines[name] = f.read().splitlines()
-        check(len(lines[name]) == 2, f"{name}: one line an epoch")
+        check(len(lines[name]) == n_ep, f"{name}: one line an epoch")
     losses = [float(ln.split()[-1]) for ln in lines["train_loss_and_acc.txt"]]
     val = [[float(x) for x in ln.split()[1:]]
            for ln in lines["val_loss_and_acc.txt"]]
@@ -1526,7 +1573,7 @@ def phase_train_cli(paths, step_clips_per_s: float):
     check(os.path.exists(ckpt), "checkpoint.pth.tar written")
     rates = [float(m) for m in re.findall(
         r"Train set: Average loss: \S+ \(([\d.]+) clips/s", stdout)]
-    check(len(rates) == 2, f"two epoch summaries: {rates}")
+    check(len(rates) == n_ep, f"{n_ep} epoch summaries: {rates}")
 
     # the evaluate CLI loads the written checkpoint
     ev_out, ev_wall = run_cli(
@@ -1538,26 +1585,26 @@ def phase_train_cli(paths, step_clips_per_s: float):
     check("checkpoint: loaded" in ev_out and "kept 0 at init" in ev_out,
           "the evaluate CLI loaded every tensor of the checkpoint")
 
-    # a third epoch, resumed from the run root
+    # one more epoch, resumed from the run root
     saved = torch.load(ckpt, map_location="cpu", weights_only=False)
     n_params = len(saved["optimizer"]["state"])
-    check(saved["epoch"] == 2 and n_params > 0,
-          "the checkpoint resumes at epoch 2 with momentum buffers")
+    check(saved["epoch"] == n_ep and n_params > 0,
+          f"the checkpoint resumes at epoch {n_ep} with momentum buffers")
     res_out, res_wall = run_cli(
         cli[:-2] + ["--checkpoint_path", out, "--device", "cuda"] + data
-        + ["TRAIN.EPOCHS", "3"], "resumed training CLI")
-    want = (f"resume: epoch 2, best_prec1 {saved['best_prec1']}, optimizer "
+        + ["TRAIN.EPOCHS", str(n_ep + 1)], "resumed training CLI")
+    want = (f"resume: epoch {n_ep}, best_prec1 {saved['best_prec1']}, optimizer "
             f"state for {n_params}/{n_params} parameters, schedule count "
             f"{saved['lr_schedule']['count']}")
     check(want in res_out and "WARNING: restore" not in res_out,
           f"resumed with the saved momentum buffers ({want!r})")
     with open(os.path.join(logs, "train_loss_and_acc.txt")) as f:
         after = f.read().splitlines()
-    check(len(after) == 3 and after[-1].startswith("epoch:2 "),
-          "the resumed run trained epoch 2 only")
-    check(torch.load(ckpt, map_location="cpu",
-                     weights_only=False)["epoch"] == 3, "epoch 3 saved")
-    emit("train_cli", command=" ".join(cli[1:6]) + " ...", epochs=2,
+    check(len(after) == n_ep + 1 and after[-1].startswith(f"epoch:{n_ep} "),
+          f"the resumed run trained epoch {n_ep} only")
+    check(torch.load(ckpt, map_location="cpu", weights_only=False)["epoch"]
+          == n_ep + 1, f"epoch {n_ep + 1} saved")
+    emit("train_cli", command=" ".join(cli[1:6]) + " ...", epochs=n_ep,
          wall_s=wall, train_videos=n_train, val_videos=TRAIN_CLI_CLASSES,
          train_loss=losses, val_lines=lines["val_loss_and_acc.txt"],
          nmi=lines["NMIs.txt"], retrieval=lines["global_retrieval_acc.txt"],
@@ -1566,6 +1613,508 @@ def phase_train_cli(paths, step_clips_per_s: float):
          train_step_clips_per_s=step_clips_per_s,
          evaluate_wall_s=ev_wall, resume_wall_s=res_wall,
          resume_line=want, stdout_tail=stdout.strip().splitlines()[-3:])
+
+
+# --------------------------------------------------------------------------
+# k-means (ITERCLUSTER.METHOD's default) at the Kinetics bank's size
+
+KMEANS_K = 1000  # ITERCLUSTER.K
+KMEANS_N_INIT, KMEANS_ITERS = 10, 50  # fit_cluster's restarts, max_iter
+KMEANS_CHECK_N = 20000
+# the card's float32 Lloyd run against a float64 one from the same initial
+# points on KMEANS_CHECK_N points: after one update only near-ties may
+# differ; after KMEANS_ITERS a flipped point moves two centres, so a few
+# more may follow, and the inertia stays within 1e-4
+KMEANS_MIN_AGREE = {1: 0.9999, KMEANS_ITERS: 0.99}
+KMEANS_MAX_INERTIA_REL = {1: 1e-6, KMEANS_ITERS: 1e-4}
+UCF_KMEANS_K = SYN["classes"]  # the synthetic set has 440 train videos
+
+
+def lloyd_fp64(x, idx, iters: int, spherical: bool):
+    """Plain float64 Lloyd iterations from the points ``idx`` (the
+    reference the port's float32 k-means is held to): -> (labels,
+    inertia)."""
+    import torch
+
+    x = x.double()
+    if spherical:
+        x = x / x.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    c = x[idx]
+    k = c.shape[0]
+
+    def dist(c):
+        return ((x * x).sum(1)[:, None] + (c * c).sum(1)[None, :]
+                - 2.0 * x @ c.T)
+
+    for _ in range(iters):
+        a = dist(c).argmin(1)
+        sums = torch.zeros_like(c).index_add_(0, a, x)
+        counts = torch.bincount(a, minlength=k).double()
+        c = torch.where(counts[:, None] > 0, sums / counts.clamp_min(1)[:, None],
+                        c)
+        if spherical:
+            c = c / c.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    d = dist(c)
+    a = d.argmin(1)
+    return a, float(d.gather(1, a[:, None]).sum())
+
+
+def phase_kmeans(bank: np.ndarray, bank_lbl: np.ndarray, ucf, ucf_model,
+                 train_loader, train_ds):
+    """kmeans and spherical_kmeans over the 240,000 x 128 planted mixture
+    with K = 1000, 10 restarts and 50 iterations, timed; the float32 run
+    held to a float64 Lloyd run from the same points on 20k of them;
+    iterative_cluster_step with ITERCLUSTER.METHOD kmeans on the UCF set.
+    None of it launches nn1_cosine."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cluster import (fit_cluster,
+                                                           kmeans,
+                                                           spherical_kmeans)
+    from video_similarity_search_tpu_torch.ops import fused_knn
+    from video_similarity_search_tpu_torch.train.driver import \
+        iterative_cluster_step
+
+    fused_knn.LAUNCHES = 0
+    x = torch.from_numpy(bank).cuda()
+    timed = {}
+    for name, fn, kw in (("kmeans", kmeans, {"l2normalize": True}),
+                         ("spherical_kmeans", spherical_kmeans, {})):
+        fn(x[:4096], 8, n_init=1, max_iter=2, device="cuda", **kw)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        labels, inertia = fn(x, KMEANS_K, n_init=KMEANS_N_INIT,
+                             max_iter=KMEANS_ITERS, seed=SEED, device="cuda",
+                             **kw)
+        inertia = float(inertia)  # waits for the card
+        labels = labels.cpu().numpy()
+        timed[name] = {"s": time.perf_counter() - t0, "inertia": inertia,
+                       "clusters": int(len(np.unique(labels))),
+                       "nmi_vs_planted": nmi(bank_lbl, labels),
+                       "peak_mem_gib": torch.cuda.max_memory_allocated()
+                       / 2 ** 30}
+        check(labels.shape == (bank.shape[0],) and np.isfinite(inertia),
+              f"{name}: a label a point and a finite inertia")
+    fit_s = time.perf_counter()
+    fit_labels = fit_cluster(bank, method="kmeans", k=KMEANS_K,
+                             verbose=False, device="cuda")
+    fit_s = time.perf_counter() - fit_s
+    check(fit_labels.shape == (bank.shape[0],), "fit_cluster('kmeans')")
+
+    # float32 on the card against float64 from the same initial points
+    sub = x[:KMEANS_CHECK_N]
+    idx = np.random.default_rng(SEED).choice(KMEANS_CHECK_N, KMEANS_K,
+                                             replace=False)
+    vs64 = {}
+    for name, spherical in (("kmeans", False), ("spherical_kmeans", True)):
+        for iters in (1, KMEANS_ITERS):
+            lt, it = kmeans(sub, KMEANS_K, n_init=1, max_iter=iters,
+                            spherical=spherical, init_idx=idx[None],
+                            device="cuda")
+            l64, i64 = lloyd_fp64(sub, torch.from_numpy(idx).cuda(), iters,
+                                  spherical)
+            agree = float((lt == l64).float().mean())
+            rel = abs(float(it) - i64) / i64
+            vs64[f"{name}_iters{iters}"] = {"labels_agree": agree,
+                                             "inertia_rel_diff": rel}
+            check(agree >= KMEANS_MIN_AGREE[iters]
+                  and rel <= KMEANS_MAX_INERTIA_REL[iters],
+                  f"{name}, {iters} iterations, float32 vs float64: labels "
+                  f"agree {agree} (>= {KMEANS_MIN_AGREE[iters]}), inertia "
+                  f"{rel} (<= {KMEANS_MAX_INERTIA_REL[iters]})")
+    del x, sub
+
+    # the iterative-cluster step with k-means on the UCF set
+    cfg = ucf.clone()
+    cfg.OUTPUT_PATH = os.path.join(OUT, "kmeans_step")
+    cfg.ITERCLUSTER.METHOD = "kmeans"
+    cfg.ITERCLUSTER.K = UCF_KMEANS_K
+    shutil.rmtree(cfg.OUTPUT_PATH, ignore_errors=True)
+    t0 = time.perf_counter()
+    step_labels = iterative_cluster_step(ucf_model, cfg, train_loader,
+                                         device="cuda")
+    step_s = time.perf_counter() - t0
+    with open(os.path.join(cfg.OUTPUT_PATH, "vid_clusters.txt")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln]
+    check(np.array_equal(np.array(lines, np.int64), step_labels)
+          and len(lines) == len(train_ds),
+          "vid_clusters.txt holds the k-means labels, one a video")
+    check(len(np.unique(step_labels)) <= UCF_KMEANS_K,
+          f"at most {UCF_KMEANS_K} clusters")
+    true = np.array([s["label"] for s in train_ds.samples])
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"k-means launched nn1_cosine {launches} times")
+    emit("kmeans", n=int(bank.shape[0]), d=int(bank.shape[1]), k=KMEANS_K,
+         n_init=KMEANS_N_INIT, max_iter=KMEANS_ITERS, timed=timed,
+         fit_cluster_s=fit_s, vs_fp64_on=KMEANS_CHECK_N, vs_fp64=vs64,
+         ucf_step={"videos": len(train_ds), "k": UCF_KMEANS_K,
+                   "s": step_s, "clusters": int(len(np.unique(step_labels))),
+                   "nmi": nmi(true, step_labels)},
+         nn1_cosine_launches=launches)
+
+
+# --------------------------------------------------------------------------
+# the ResNet3D and loss options of the triplet pretrain, one at a time
+
+MEM_TRIPLET_K = 640  # a multiple of 2B = 64; the default 40 is not
+TRAIN_OPTIONS = {
+    "mem_triplet": ["LOSS.MEM_TRIPLET", True,
+                    "LOSS.MEM_TRIPLET_K", MEM_TRIPLET_K],
+    "attention": ["RESNET.ATTENTION", True],
+    "stem_s2d": ["TPU.STEM_S2D", True],
+    "remat_all": ["TPU.REMAT", True],
+    "remat_stage1": ["TPU.REMAT", True, "TPU.REMAT_STAGES", "1"],
+}
+
+
+def stem_vs_7x7(cfg7, init7, cfg_s2d, init_s2d, host):
+    """The space-to-depth stem against the 7x7 stem it was made from, on
+    the step's 96 normalized clips: the forward's ms of each (as the step
+    runs it, bf16 autocast, channels_last_3d), and the s2d output against
+    the 7x7 one in float32 (TF32 off) and in bf16."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.models.resnet3d import \
+        space_to_depth
+
+    x = normalize_only(torch.from_numpy(np.concatenate(
+        [host[k] for k in TRAIN_VIEWS])).cuda(), dataset=cfg7.TRAIN.DATASET)
+    stems = {}
+    for name, cfg, init in (("7x7", cfg7, init7), ("s2d", cfg_s2d, init_s2d)):
+        model = model_selector(cfg)
+        model.load_state_dict(init)
+        stems[name] = model.conv1.cuda().to(
+            memory_format=torch.channels_last_3d)
+        del model
+    out_hw = x.shape[2] // 2
+
+    def run(name, dtype):
+        with torch.inference_mode(), torch.autocast(
+                "cuda", dtype=dtype, enabled=dtype != torch.float32):
+            if name == "7x7":
+                return stems[name](x.permute(0, 4, 1, 2, 3))
+            xs = space_to_depth(x).permute(0, 4, 1, 2, 3)
+            return stems[name](xs)[..., :out_hw, :out_hw]
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        ref, got = run("7x7", dtype).float(), run("s2d", dtype).float()
+        err = float((got - ref).abs().max())
+        out[str(dtype).split(".")[-1]] = {
+            "max_abs_diff": err, "rel_to_max": err / float(ref.abs().max())}
+    out["ms_7x7"] = time_ms(lambda: run("7x7", torch.bfloat16))
+    out["ms_s2d"] = time_ms(lambda: run("s2d", torch.bfloat16))
+    out["clips"] = int(x.shape[0])
+    check(out["float32"]["rel_to_max"] <= 1e-5, "s2d stem = 7x7 stem in "
+          f"float32 within 1e-5 of its largest value ({out['float32']})")
+    return out
+
+
+def phase_train_options():
+    """R3D-18 on the UCF config with the train_step phase's 96 in-memory
+    clips, one option at a time (LOSS.MEM_TRIPLET with 640 slots,
+    RESNET.ATTENTION, TPU.STEM_S2D, TPU.REMAT on all stages and on stage
+    1): one fp32 step on the card held to the CPU and to an fp64 CPU run
+    at 2 anchors, as train_step (a) holds the plain step (both remat
+    options to one pair of CPU runs), and a timed bf16 step; for the s2d
+    stem its forward beside the 7x7 stem's."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.models.resnet3d import \
+        conv1_kernel_to_s2d
+
+    base = ["OUTPUT_PATH", os.path.join(OUT, "train_options")]
+    cfg7 = load_cfg(UCF_YAML, base)
+    b, t, s = (cfg7.TRAIN.BATCH_SIZE, cfg7.DATA.SAMPLE_DURATION,
+               cfg7.DATA.SAMPLE_SIZE)
+    torch.manual_seed(SEED)
+    init7 = model_selector(cfg7).state_dict()
+    host = triplet_batch(np.random.default_rng(SEED), b, t, s, n_cls=16)
+    out, remat_cpu = {}, {}  # remat changes memory, not arithmetic
+    for name, opts in TRAIN_OPTIONS.items():
+        cfg = load_cfg(UCF_YAML, base + opts)
+        torch.manual_seed(SEED)
+        init = model_selector(cfg).state_dict()
+        if name == "stem_s2d":  # the 7x7 model's weights, its stem mapped
+            init = dict(init7, **{"conv1.weight": conv1_kernel_to_s2d(
+                init7["conv1.weight"])})
+        row = {"fp32_card_vs_cpu": step_vs_cpu(
+            cfg, init, host, remat_cpu if name.startswith("remat") else None)}
+        torch.cuda.empty_cache()
+        row["bf16_step"] = time_steps(cfg, init, host, 1, split=False)
+        torch.cuda.empty_cache()
+        if name == "stem_s2d":
+            row["stem"] = stem_vs_7x7(cfg7, init7, cfg, init, host)
+        out[name] = row
+    emit("train_options", config="configs/resnet_ucf_itercluster_flow.yaml",
+         arch="R3D-18", clip=[t, s, s, 3], anchors=b, clips_per_step=3 * b,
+         mem_triplet_k=MEM_TRIPLET_K, options=out)
+    return {k: v["bf16_step"]["step_ms"] for k, v in out.items()}
+
+
+# --------------------------------------------------------------------------
+# the contrastive (NCE / MemoryMoCo) pretrain at bench.py:276's shape
+
+NCE_ANCHORS = 64  # bench.py contrastive_step_bench(batch=64)
+NCE_K, NCE_FEAT = 1024, 128  # LOSS.K, LOSS.FEAT_DIM
+NCE_DATA = 9537  # UCF-101 split 1's training videos
+NCE_VARIANTS = {"rgb": ["DATASET.MODALITY", "rgb"],
+                "res": [],  # the default MODALITY False means res
+                "intra_neg": ["DATASET.MODALITY", "rgb",
+                              "LOSS.INTRA_NEGATIVE", True],
+                "moco": ["DATASET.MODALITY", "rgb", "LOSS.MOCO", True]}
+NCE_FP64_ANCHORS = 16  # the fp32-vs-fp64 step: fp64 R3D-18 at 2 x 16 clips
+NCE_CLI_CLASSES = 10  # of the synthetic set's 40: 110 train videos
+# the config's lr 0.1 on the unnormalized projections (as in JAX) can send
+# the CLI's few steps to NaN embeddings before validation; the CLI run
+# checks the path and the resume, not the learning rate
+NCE_CLI_LR = 0.001
+NCE_MAX_LOSS_REL = 1e-4
+NCE_MIN_GRAD_COS = 0.999
+
+
+def contrastive_cfg(variant: str, extra=()):
+    return load_cfg(UCF_YAML, ["LOSS.TYPE", "contrastive",
+                               "TRAIN.BATCH_SIZE", NCE_ANCHORS,
+                               "LOSS.K", NCE_K, "LOSS.FEAT_DIM", NCE_FEAT,
+                               "OUTPUT_PATH", os.path.join(OUT, "nce")]
+                    + NCE_VARIANTS[variant] + list(extra))
+
+
+def contrastive_trainer(cfg, init, device, dtype=None):
+    """R3D-18 from ``init`` on ``device`` (cast to ``dtype``) with its
+    optimizer, seeded bank over NCE_DATA videos and contrastive step."""
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train.driver import \
+        make_train_step
+    from video_similarity_search_tpu_torch.train.state import make_optimizer
+    from video_similarity_search_tpu_torch.train.steps import make_banks
+
+    model = model_selector(cfg)
+    model.load_state_dict(init)
+    model.to(device)
+    if dtype is not None:
+        model.to(dtype)
+    opt, sched = make_optimizer(cfg, model.parameters())
+    banks = make_banks(cfg, NCE_DATA)
+    step, _ = make_train_step(cfg, model, opt, sched, banks, device=device)
+    return model, banks, step
+
+
+def nce_views(rng, b, t, s, structured=False):
+    """Normalized view1 / view2 clips on the card and their dataset
+    indices; ``structured``: two clips of one class colour a row."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+
+    labels = rng.integers(0, 8, b)
+    views = {k: normalize_only(torch.from_numpy(class_clips(
+        rng, labels, t, s, 8, structured)).cuda(), dataset="ucf101")
+        for k in ("view1", "view2")}
+    views["index"] = torch.from_numpy(rng.choice(NCE_DATA, b,
+                                                 replace=False)).cuda()
+    return views
+
+
+def contrastive_fp32_vs_fp64(init):
+    """One rgb step, fp32 (TF32 off) against fp64 networks on the card
+    (banks and losses float32 in both, as in the JAX step), from the same
+    weights, bank and NCE draws: the loss, the whole gradient's cosine and
+    the banks after the step."""
+    import torch
+
+    cfg = contrastive_cfg("rgb", ["TPU.COMPUTE_DTYPE", "float32"])
+    t, s = cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    batch = nce_views(np.random.default_rng(SEED + 1), NCE_FP64_ANCHORS, t, s)
+    gen = torch.Generator().manual_seed(SEED)
+    idx = torch.randint(0, NCE_DATA, (NCE_FP64_ANCHORS, NCE_K + 1),
+                        generator=gen)
+    res = {}
+    for dtype in (torch.float32, torch.float64):
+        model, banks, step = contrastive_trainer(cfg, init, "cuda", dtype)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        met = step(b, nce_idx=idx)  # the gradients stay until the next
+        grad = torch.cat([p.grad.double().flatten()
+                          for p in model.parameters()])
+        res[dtype] = {"loss": float(met["loss"]), "grad": grad,
+                      "bank": banks["nce"].memory_l.detach().clone()}
+        del model, banks, step
+        torch.cuda.empty_cache()
+    lo, hi = res[torch.float32], res[torch.float64]
+    out = {"anchors": NCE_FP64_ANCHORS, "loss_fp32": lo["loss"],
+           "loss_fp64": hi["loss"],
+           "loss_rel_diff": abs(lo["loss"] - hi["loss"]) / abs(hi["loss"]),
+           "grad_cosine": float(torch.nn.functional.cosine_similarity(
+               lo["grad"], hi["grad"], dim=0)),
+           "bank_max_abs_diff": float((lo["bank"] - hi["bank"]).abs().max())}
+    check(out["loss_rel_diff"] <= NCE_MAX_LOSS_REL
+          and out["grad_cosine"] >= NCE_MIN_GRAD_COS
+          and out["bank_max_abs_diff"] <= 1e-4,
+          f"contrastive fp32 vs fp64: {out}")
+    return out
+
+
+def time_contrastive(variant: str, init, host_rng):
+    """ms of a bf16 step (median of TIMED_STEPS after two warm-up steps,
+    host clock around a synchronized step), clips/s (forward clips: the
+    views times the anchors) and peak GiB."""
+    import torch
+
+    cfg = contrastive_cfg(variant)
+    model, banks, step = contrastive_trainer(cfg, init, "cuda")
+    t, s = cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    batch = nce_views(host_rng, NCE_ANCHORS, t, s)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    # the first step's loss, from the seeded weights (the timed steps'
+    # losses follow lr 0.1 on one batch: MoCo's reaches ~1e25 by then)
+    first = float(step(batch, gen)["loss"])
+    step(batch, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        met = step(batch, gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    n_views = 3 if variant == "intra_neg" else 2
+    ms = float(np.median(times))
+    check(np.isfinite(first), f"{variant}: a finite first loss ({first})")
+    return {"step_ms": ms, "step_ms_all": times, "views": n_views,
+            "clips_per_s": n_views * NCE_ANCHORS / (ms / 1e3),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "bank": sorted(banks), "first_loss": first,
+            "last_loss": float(met["loss"])}
+
+
+def contrastive_learning(init):
+    """LEARN_STEPS bf16 rgb steps on one fixed batch of class-coloured
+    clip pairs lower the loss."""
+    import torch
+
+    cfg = contrastive_cfg("rgb")
+    _, _, step = contrastive_trainer(cfg, init, "cuda")
+    batch = nce_views(np.random.default_rng(SEED + 2), NCE_ANCHORS,
+                      cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE,
+                      structured=True)
+    gen = torch.Generator(device="cuda")
+    losses = []
+    for i in range(LEARN_STEPS):
+        gen.manual_seed(SEED + i)
+        losses.append(step(batch, gen)["loss"])
+    losses = [float(v) for v in losses]
+    ratio = float(np.mean(losses[-5:])) / losses[0]
+    check(all(np.isfinite(losses)) and ratio <= LEARN_MAX_RATIO,
+          f"contrastive learning check: the last 5 steps' mean loss is "
+          f"{ratio:.3f} of the first's (<= {LEARN_MAX_RATIO})")
+    return {"steps": LEARN_STEPS, "first": losses[0],
+            "last5_mean": float(np.mean(losses[-5:])), "ratio": ratio}
+
+
+def contrastive_cli(paths):
+    """The training CLI with LOSS.TYPE contrastive and k-means clustering
+    on NCE_CLI_CLASSES classes of the synthetic set: one epoch as python
+    -m, then a second resumed from its checkpoint in this process, whose
+    banks must be the saved ones."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.train import steps
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "nce_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ann_val = train_cli_annotations(ann, work, NCE_CLI_CLASSES)[1]
+    out = os.path.join(work, "out")
+    opts = ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_val,
+            "DATASET.OPTICAL_U_PATH", flow, "LOSS.TYPE", "contrastive",
+            "DATASET.MODALITY", "rgb", "LOSS.K", str(NCE_K),
+            "LOSS.FEAT_DIM", str(NCE_FEAT), "ITERCLUSTER.METHOD", "kmeans",
+            "ITERCLUSTER.K", str(NCE_CLI_CLASSES), "ITERCLUSTER.INTERVAL",
+            "1", "OPTIM.LR", str(NCE_CLI_LR)]
+    cli = ["--cfg", UCF_YAML, "--iterative_cluster", "--output", out,
+           "--device", "cuda"]
+    stdout, wall = run_cli([sys.executable, "-m",
+                            "video_similarity_search_tpu_torch.cli."
+                            "online_train"] + cli + opts
+                           + ["TRAIN.EPOCHS", "1"], "contrastive CLI")
+    ckpt = os.path.join(out, "tnet_checkpoints", "3dresnet",
+                        "checkpoint.pth.tar")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    check(saved["epoch"] == 1 and set(saved.get("banks", {})) == {"nce"},
+          "the checkpoint holds epoch 1 and the nce bank")
+    seen = {}
+    make_step = steps.make_contrastive_train_step
+
+    def spy(cfg, model, optimizer, schedule, bank, **kw):
+        seen.update({k: v.detach().cpu().clone()
+                     for k, v in bank.state_dict().items()})
+        return make_step(cfg, model, optimizer, schedule, bank, **kw)
+
+    steps.make_contrastive_train_step = spy
+    try:
+        res_out, res_wall = run_main(
+            online_train.main, cli + ["--checkpoint_path", out] + opts
+            + ["TRAIN.EPOCHS", "2"], "resumed contrastive CLI")
+    finally:
+        steps.make_contrastive_train_step = make_step
+    want = saved["banks"]["nce"]
+    check(seen.keys() == want.keys()
+          and all(torch.equal(seen[k], v) for k, v in want.items()),
+          "the resumed run starts from the saved banks, byte-equal")
+    check("WARNING: restore" not in res_out, "a clean resume")
+    logs = os.path.join(out, "tnet_checkpoints")
+    with open(os.path.join(logs, "train_loss_and_acc.txt")) as f:
+        lines = f.read().splitlines()
+    with open(os.path.join(logs, "NMIs.txt")) as f:
+        nmis = f.read().split()
+    losses = [float(ln.split()[-1]) for ln in lines]
+    check(len(lines) == 2 and all(np.isfinite(losses)),
+          "two epochs, finite losses")
+    check(len(nmis) == 2, "k-means clustered before each epoch")
+    rates = [float(m) for m in re.findall(
+        r"Train set: Average loss: \S+ \(([\d.]+) clips/s", stdout + res_out)]
+    return {"wall_s": wall, "resume_wall_s": res_wall, "train_loss": losses,
+            "nmi": nmis,
+            "loader_fed_anchors_per_s": rates,
+            "banks_restored_byte_equal": True}
+
+
+def phase_contrastive(paths):
+    """LOSS.TYPE contrastive at bench.py:276's shape (R3D-18, 64 anchors of
+    16x128x128, K 1024 negatives, 128-d features, 9,537 videos): a timed
+    bf16 step for rgb, res, intra-negative and MoCo; one fp32 step held to
+    fp64; a learning check; the CLI for an epoch and a resumed second."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.ops import fused_knn
+
+    fused_knn.LAUNCHES = 0
+    torch.manual_seed(SEED)
+    init = model_selector(contrastive_cfg("rgb")).state_dict()
+    rng = np.random.default_rng(SEED)
+    timing = {v: time_contrastive(v, init, rng) for v in NCE_VARIANTS}
+    torch.cuda.empty_cache()
+    vs64 = contrastive_fp32_vs_fp64(init)
+    learn = contrastive_learning(init)
+    torch.cuda.empty_cache()
+    cli = contrastive_cli(paths)
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"the contrastive path launched nn1_cosine "
+          f"{launches} times")
+    emit("contrastive", arch="R3D-18", anchors=NCE_ANCHORS, k=NCE_K,
+         feat_dim=NCE_FEAT, n_data=NCE_DATA, timing=timing,
+         fp32_vs_fp64=vs64, learning=learn, cli=cli,
+         nn1_cosine_launches=launches)
+    return {k: v["step_ms"] for k, v in timing.items()}
 
 
 # --------------------------------------------------------------------------
@@ -2173,17 +2722,21 @@ def main() -> int:
     finch_launches = run("cluster", phase_cluster, bank, bank_lbl, emb4096)
     run("retrieval", phase_retrieval, model, cfg, cache, bank)
     check(fused_knn.LAUNCHES == 0, "retrieval launches no 1-NN kernel")
-    del bank, bank_lbl
     backend = run("host", phase_host)
     ucf, paths, train_loader, train_ds = run("data", phase_data, backend)
     ucf_model, emb = run("embed_loader", phase_embed_loader, ucf,
                          train_loader, backend)
     run("cluster_step", phase_cluster_step, ucf, ucf_model, train_loader,
         train_ds, backend)
+    run("kmeans", phase_kmeans, bank, bank_lbl, ucf, ucf_model, train_loader,
+        train_ds)
+    del bank, bank_lbl
     run("cli", phase_cli, ucf, paths, ucf_model, emb)
     del ucf_model, train_loader
     step_rate = run("train_step", phase_train_step)
     run("train_cli", phase_train_cli, paths, step_rate)
+    run("train_options", phase_train_options)
+    run("contrastive", phase_contrastive, paths)
     fused_knn.LAUNCHES = 0
     cls_rates = run("classify_step", phase_classify_step, smi)
     check(fused_knn.LAUNCHES == 0, "the classifier step launches no 1-NN "
@@ -2192,9 +2745,11 @@ def main() -> int:
     emit("timing", seconds=seconds, total_s=sum(seconds.values()),
          notes="the data phase reads 3 epochs of the eval train loader "
                "(5 before the train_step and train_cli phases); train_cli "
-               "trains on 20 of the synthetic set's 40 classes; "
-               "classify_cli writes its own 20-class set of 64-frame "
-               "videos")
+               "trains 1 epoch and a resumed second (2 and a third before "
+               "the slice-5 phases) on 20 of the synthetic set's 40 "
+               "classes, the "
+               "contrastive CLI on 10; classify_cli writes its own "
+               "20-class set of 64-frame videos")
 
     main_shape = shapes[-1]
     src, replaces = KERNELS["nn1_cosine"]

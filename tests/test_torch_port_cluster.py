@@ -4,7 +4,7 @@ The same planted mixture (numpy, fixed seed) goes through both; the
 partitions must be equal up to relabelling and ``num_clust`` equal, on
 the dense level-0 path, on the sparse level-0 path (``DENSE_THRESHOLD``
 patched low in both modules, as tests/test_cluster.py does) and with
-``req_clust``.
+``req_clust``; and fit_cluster's finch, kmeans and spherical_kmeans.
 """
 
 import numpy as np
@@ -81,5 +81,11 @@ def test_fit_cluster_finch_matches_jax():
 
 @pytest.mark.parametrize("method", ["kmeans", "spherical_kmeans"])
 def test_kmeans_not_ported(method):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_fit(np.zeros((4, 2), np.float32), method=method, device="cpu")
+    """k-means is ported now: fit_cluster on both packages finds the same
+    partition of a well separated mixture (each package draws its own
+    initial points; 10 restarts find the planted clusters)."""
+    x, lbl = _mixture(240, classes=4, noise=0.1, seed=5)
+    lj = j_fit(x, method=method, k=4, verbose=False)
+    lt = t_fit(x, method=method, k=4, verbose=False, device="cpu")
+    np.testing.assert_array_equal(_canon(lt), _canon(lj))
+    np.testing.assert_array_equal(_canon(lt), _canon(lbl))

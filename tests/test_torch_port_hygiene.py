@@ -1,6 +1,6 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
-no silent fall back to the CPU (the serving, training and classification
-entry points alike), its own copy of the native decoder, and (on a CUDA machine only)
+no silent fall back to the CPU (the serving, clustering, training,
+contrastive and classification entry points alike), its own copy of the native decoder, and (on a CUDA machine only)
 the CUDA 1-NN kernel agrees with its plain version, the pinned side-stream
 upload delivers the host batches, and the triplet step on the card equals
 the step on the CPU."""
@@ -48,7 +48,8 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_entry_points_without_device_raise_on_a_box_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the default device is usable")
-    from video_similarity_search_tpu_torch.cluster import FINCH, fit_cluster
+    from video_similarity_search_tpu_torch.cluster import (FINCH, fit_cluster,
+                                                           kmeans)
     from video_similarity_search_tpu_torch.evaluation import (
         get_embeddings_and_labels, topk_retrieval_acc)
     x = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)
@@ -69,12 +70,18 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
         make_optimizer, make_triplet_train_step)
     from video_similarity_search_tpu_torch.train.driver import (
         iterative_cluster_step, train)
+    from video_similarity_search_tpu_torch.train.steps import (
+        make_banks, make_contrastive_train_step)
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(ROOT, "configs",
                                      "resnet_ucf_itercluster_flow.yaml"))
     assert cfg.TPU.PREFETCH_DEVICE_PUT  # the config asks for the upload
     calls = [lambda: FINCH(x, verbose=False),
              lambda: fit_cluster(x, method="finch", verbose=False),
+             lambda: fit_cluster(x, method="kmeans", k=2, verbose=False),
+             lambda: fit_cluster(x, method="spherical_kmeans", k=2,
+                                 verbose=False),
+             lambda: kmeans(x, 2),
              lambda: topk_retrieval_acc(x, y, x, y),
              lambda: get_embeddings_and_labels(None, None, []),
              lambda: iterative_cluster_step(None, cfg, []),
@@ -91,6 +98,9 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
                  "--iterative_cluster"]),
              lambda: train(argparse.Namespace(), cfg),
              lambda: make_triplet_train_step(cfg, model, *opt),
+             lambda: make_contrastive_train_step(nce_cfg, model, *opt,
+                                                 make_banks(nce_cfg, 8)["nce"]),
+             lambda: train(argparse.Namespace(), nce_cfg),
              lambda: validate(model, cfg, []),
              lambda: coclr_classify.main([]),
              lambda: make_classify_train_step(s3d_cfg, classifier, *cls_opt),
@@ -98,6 +108,8 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
              lambda: test_retrieval(classifier, s3d_cfg, [], [])]
     model = model_selector(cfg)
     opt = make_optimizer(cfg, model.parameters())
+    nce_cfg = cfg.clone()
+    nce_cfg.LOSS.TYPE = "contrastive"
     s3d_cfg = get_cfg()
     s3d_cfg.MODEL.ARCH = "s3d"
     classifier = LinearClassifier(num_class=5)

@@ -118,5 +118,17 @@ def test_model_selector_full_width_matches_flax_shapes():
 @pytest.mark.parametrize("option", ["attention", "stem_s2d", "remat",
                                     "classifier", "predict_temporal_ds"])
 def test_unported_options_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_generate(10, **{option: True}, **KW)
+    """Each option is ported now (tests/test_torch_port_resnet_options.py
+    holds its numbers to JAX): the port builds it with the flax module's
+    parameter count (torch adds one ``num_batches_tracked`` a BatchNorm)."""
+    kw = dict(KW, **{option: True})
+    fmodel = j_generate(10, **kw)
+    shapes = jax.eval_shape(
+        lambda: fmodel.init(jax.random.key(0), jnp.zeros((1, 4, 32, 32, 3)),
+                            train=False))
+    tmodel = t_generate(10, **kw)
+    n_flax = sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
+    n_bn = sum(isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+               for m in tmodel.modules())
+    n_torch = sum(v.numel() for v in tmodel.state_dict().values())
+    assert n_torch - n_bn == n_flax

@@ -318,9 +318,9 @@ def test_cli_refuses_what_is_not_ported(setup, tmp_path):
             "cpu"] + setup["extra"]
     with pytest.raises(NotImplementedError, match="item 10"):
         t_cli.main(base[:-4] + ["--num_shards", "2"] + base[-4:])
-    for loss in ("contrastive", "UberNCE"):
-        with pytest.raises(NotImplementedError, match="items 15-16"):
-            t_cli.main(base + ["LOSS.TYPE", loss])
+    # LOSS.TYPE contrastive is ported (tests/test_torch_port_contrastive.py)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        t_cli.main(base + ["LOSS.TYPE", "UberNCE"])
 
 
 def test_metrics_sink_meter_and_step_profiler(tmp_path):

@@ -214,11 +214,23 @@ def test_accumulation_step_matches_jax():
 
 
 def test_mem_triplet_raises():
-    _, tcfg = _cfgs(["LOSS.MEM_TRIPLET", True])
+    """LOSS.MEM_TRIPLET is ported (tests/test_torch_port_mem_triplet.py);
+    it raises without its bank, and on a batch that does not divide the
+    bank (12 slots against 2B = 8 here; at full width the default
+    MEM_TRIPLET_K 40 against 2B = 64)."""
+    from video_similarity_search_tpu_torch.train.steps import make_banks
+    _, tcfg = _cfgs(["LOSS.MEM_TRIPLET", True, "LOSS.MEM_TRIPLET_K", 12])
     model = t_selector(tcfg)
     opt, sched = t_make_optimizer(tcfg, model.parameters())
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(ValueError, match="bank"):
         t_make_step(tcfg, model, opt, sched, device="cpu")
+    bank = make_banks(tcfg, 10)["mem_triplet"]
+    step = t_make_step(tcfg, model, opt, sched, device="cpu", bank=bank)
+    batch = {k: torch.from_numpy(v) for k, v in
+             _batch(np.random.default_rng(0)).items()}
+    batch["targets"] = batch["targets"].long()
+    with pytest.raises(ValueError, match="multiple of the batch 8"):
+        step(batch, generator=torch.Generator().manual_seed(0))
 
 
 @pytest.mark.parametrize("name,shape,accum", [

@@ -30,7 +30,7 @@ def main(argv: Optional[List[str]] = None):
     os.makedirs(cfg.OUTPUT_PATH, exist_ok=True)
     os.makedirs(os.path.join(cfg.OUTPUT_PATH, "tnet_checkpoints"),
                 exist_ok=True)
-    model, optimizer, _ = train(args, cfg, device=dev)
+    model, optimizer, _, _ = train(args, cfg, device=dev)
     return cfg, model, optimizer
 
 

@@ -2,10 +2,10 @@
 (clustering/cluster_masks.py:38-98); port of the JAX package's
 ``cluster/fit.py``.
 
-Methods: finch (FINCH on the card), and the rarely-used sklearn estimators
-(Agglomerative / DBSCAN / OPTICS) kept host-side with the reference's
-hyperparameters, sklearn imported only when one is asked for. kmeans and
-spherical_kmeans are not ported yet (ROADMAP.md, queue 1, 'k-means').
+Methods: kmeans (Lloyd on the card, L2-normalize preprocessing),
+spherical_kmeans, finch (FINCH on the card), and the rarely-used sklearn
+estimators (Agglomerative / DBSCAN / OPTICS) kept host-side with the
+reference's hyperparameters, sklearn imported only when one is asked for.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 
 from ..utils.device import resolve_device
 from .finch import FINCH
+from .kmeans import kmeans
 
 METHODS = ("DBSCAN", "Agglomerative", "OPTICS", "kmeans", "spherical_kmeans",
            "finch")
@@ -31,9 +32,11 @@ def fit_cluster(embeddings, method: str = "Agglomerative", k: int = 1000,
         print(f"Clustering with {method}...")
 
     if method in ("kmeans", "spherical_kmeans"):
-        raise NotImplementedError(
-            f"{method}: not ported yet (ROADMAP.md, queue 1, 'k-means')")
-    if method == "finch":
+        labels, _ = kmeans(emb, k=k, n_init=10,
+                           spherical=method == "spherical_kmeans",
+                           l2normalize=l2normalize, seed=seed, device=dev)
+        labels = labels.cpu().numpy()
+    elif method == "finch":
         c, num_clust, _ = FINCH(emb, distance="cosine", verbose=verbose,
                                 device=dev)
         part = min(finch_partition, c.shape[1] - 1)

@@ -30,7 +30,8 @@ def _triple(v: IntOr3) -> Tuple[int, int, int]:
 class Conv3d(nn.Conv3d):
     """3-D convolution with torch-style symmetric ``k//2`` padding by
     default (JAX ``layers.Conv3d``); He-normal fan-out init like the flax
-    ``variance_scaling(2.0, "fan_out", "normal")``."""
+    ``variance_scaling(2.0, "fan_out", "normal")``, a bias (when asked
+    for) at zero like flax's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOr3 = 3, stride: IntOr3 = 1,
@@ -41,6 +42,8 @@ class Conv3d(nn.Conv3d):
                          bias=bias)
         nn.init.kaiming_normal_(self.weight, mode="fan_out",
                                 nonlinearity="relu")
+        if bias:
+            nn.init.zeros_(self.bias)
 
 
 class _FlaxRunningVar:
@@ -52,12 +55,24 @@ class _FlaxRunningVar:
     torch's fused ``F.batch_norm`` (statistics accumulated in float32, also
     for a bf16 input under autocast, as flax takes them on a float32 copy)
     and then rewrites the C-length running variance to flax's value.
-    Eval mode is torch's own."""
+    Eval mode is torch's own.
+
+    ``frozen_stats`` is set while ``torch.utils.checkpoint`` recomputes a
+    block's forward for the backward pass: the layer then normalizes by the
+    batch's statistics as before but leaves the running statistics as the
+    first forward wrote them, once, as flax's ``nn.remat`` does (ROADMAP
+    hazard H7)."""
+
+    frozen_stats = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if self.frozen_stats:  # the same call on copies of both statistics
+            return F.batch_norm(x, self.running_mean.clone(),
+                                self.running_var.clone(), self.weight,
+                                self.bias, True, self.momentum, self.eps)
         self.num_batches_tracked.add_(1)
         n = x.numel() // x.shape[1]
         # torch updates this copy in place (autograd keeps it for the

@@ -22,6 +22,16 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
 
 
+def parse_remat_stages(spec) -> Optional[tuple]:
+    """``TPU.REMAT_STAGES`` '1' / '1,2' -> (1, 2); '' or None -> None (all
+    stages when ``TPU.REMAT``), as the JAX registry parses it."""
+    if not spec:
+        return None
+    if isinstance(spec, (list, tuple)):
+        return tuple(int(s) for s in spec)
+    return tuple(int(s) for s in str(spec).split(","))
+
+
 def compute_dtype(cfg) -> torch.dtype:
     """``TPU.COMPUTE_DTYPE`` -> the autocast dtype used on the card."""
     name = str(cfg.TPU.COMPUTE_DTYPE).lower() if "TPU" in cfg else "float32"
@@ -70,4 +80,6 @@ def model_selector(cfg, projection_head: bool = True, classifier: bool = False,
         dropout=dropout,
         stem_s2d=bool(cfg.TPU.STEM_S2D) if "TPU" in cfg else False,
         remat=bool(cfg.TPU.REMAT) if "TPU" in cfg else False,
+        remat_stages=parse_remat_stages(
+            cfg.TPU.REMAT_STAGES) if "TPU" in cfg else None,
     )

@@ -3,29 +3,81 @@
 
 Parameters carry the kenshohara reference names (``conv1``, ``bn1``,
 ``layer{s}.{b}.conv{c}``, ``layer{s}.{b}.downsample.0/1``, ``fc1``,
-``bn_proj``, ``fc2``), so a reference ``.pth.tar`` state_dict loads with
-``load_state_dict`` and no key map. ``forward`` takes the JAX layout
-``(B, T, H, W, C)``.
+``bn_proj``, ``fc2``, ``temporal_ds_linear``, and ``linear`` or, behind a
+dropout, ``linear.1``), so a reference ``.pth.tar`` state_dict loads with
+``load_state_dict`` and no key map. The attention blocks, which the
+reference's checkpoints and the JAX package's importer do not name, are
+named after the JAX package's flax modules:
+``channel_temporal_attention{s}.{fc1,fc2,conv1d_1,conv1d_2}`` and
+``spatio_temporal_attention{s}.{conv2d,conv3d_1,conv3d_2}``. ``forward``
+takes the JAX layout ``(B, T, H, W, C)``.
 
-Ported: basic and bottleneck blocks, shortcuts A and B, the conv1
-temporal size/stride, max-pool removal, widen factor and the projection
-head. Attention, ``stem_s2d``, ``remat``, the classifier head and the
-temporal-downsample head raise ``NotImplementedError`` (ROADMAP.md, queue 1,
-"ResNet3D options").
+Options, as in the JAX module:
+
+* ``attention``: channel-temporal then spatio-temporal attention after
+  every stage. The JAX module's spatial branch takes a real max-pool where
+  the reference reused its avg-pool (reference models/resnet.py:413-414).
+* ``classifier`` (with ``dropout``): class logits from the pooled features
+  through ``linear`` (normal(0.01) weights, zero bias).
+* ``predict_temporal_ds``: ``(projection, ds_logits)``.
+* ``stem_s2d``: space-to-depth and a stride-1 (kT, 4, 4) convolution over
+  4C channels, equal to the 7x7 stride-2 stem (``conv1_kernel_to_s2d``
+  maps its weights). Its spatial padding is (2, 1); torch pads
+  symmetrically, so the convolution pads (2, 2) and the last output row
+  and column, which only the extra padding reaches, are dropped.
+* ``remat`` / ``remat_stages``: each residual block of those stages runs
+  under ``torch.utils.checkpoint`` (non-reentrant) in training, so the
+  backward pass recomputes its activations instead of keeping them. The
+  recomputation leaves BatchNorm's running statistics alone (ROADMAP
+  hazard H7, ``layers.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from .layers import (BatchNorm, Conv3d, ProjectionHead, global_avg_pool,
-                     max_pool3d)
+from .heads import Dropout
+from .layers import (BatchNorm, Conv3d, ProjectionHead, _FlaxRunningVar,
+                     global_avg_pool, max_pool3d)
 
-_TODO = "not ported yet (ROADMAP.md, queue 1, 'ResNet3D options')"
+
+def space_to_depth(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, W, C) -> (B, T, H/2, W/2, 4C); channel index
+    (py*2 + px)*C + c for the 2x2 block offset (py, px)."""
+    b, t, h, w, c = x.shape
+    x = x.reshape(b, t, h // 2, 2, w // 2, 2, c)
+    return x.permute(0, 1, 2, 4, 3, 5, 6).reshape(b, t, h // 2, w // 2, 4 * c)
+
+
+def conv1_kernel_to_s2d(weight: torch.Tensor) -> torch.Tensor:
+    """A (O, C, kT, 7, 7) stride-(1, 2, 2) stem weight -> the equal
+    (O, 4C, kT, 4, 4) stride-1 weight over space-to-depth input (the JAX
+    ``conv1_kernel_to_s2d`` in torch's layout): tap 2*kb + p - 1 of the
+    7x7 kernel lands on 4x4 tap kb at block offset p; the taps outside
+    [0, 6] are zero (one per axis)."""
+    o, c, kt, kh, kw = weight.shape
+    assert kh == 7 and kw == 7, "s2d transform is for the 7x7 spatial stem"
+    out = weight.new_zeros(o, 4 * c, kt, 4, 4)
+    for kby in range(4):
+        for py in range(2):
+            yy = 2 * kby + py - 1
+            if not 0 <= yy <= 6:
+                continue
+            for kbx in range(4):
+                for px in range(2):
+                    xx = 2 * kbx + px - 1
+                    if not 0 <= xx <= 6:
+                        continue
+                    ch = (py * 2 + px) * c
+                    out[:, ch:ch + c, :, kby, kbx] = weight[:, :, :, yy, xx]
+    return out
 
 
 class _Shortcut(nn.Module):
@@ -102,11 +154,77 @@ class Bottleneck3d(nn.Module):
         return F.relu(h + r)
 
 
+class ChannelTemporalAttention(nn.Module):
+    """Channel-temporal attention (the JAX module; reference
+    models/resnet.py:317-376): spatially average- and max-pooled channel
+    descriptors through a shared two-layer linear map, a sigmoid, two
+    depthwise temporal convolutions (``Conv1d(groups=C)`` over (B, C, T)),
+    a sigmoid, and a (T, C) mask on the input."""
+
+    def __init__(self, channels: int, reduction: int = 4):
+        super().__init__()
+        self.fc1 = nn.Linear(channels, channels // reduction)
+        self.fc2 = nn.Linear(channels // reduction, channels)
+        self.conv1d_1 = nn.Conv1d(channels, channels, 3, padding=1,
+                                  groups=channels)
+        self.conv1d_2 = nn.Conv1d(channels, channels, 3, padding=1,
+                                  groups=channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, T, H, W)
+        d_avg = x.mean(dim=(3, 4)).transpose(1, 2)  # (B, T, C)
+        d_max = x.amax(dim=(3, 4)).transpose(1, 2)
+        m = torch.sigmoid(self.fc2(self.fc1(d_avg)) + self.fc2(self.fc1(d_max)))
+        m = torch.sigmoid(self.conv1d_2(self.conv1d_1(m.transpose(1, 2))))
+        return x * m[:, :, :, None, None]
+
+
+class SpatioTemporalAttention(nn.Module):
+    """Spatio-temporal attention (the JAX module; reference
+    models/resnet.py:379-431): channel mean and max maps, a (1, 7, 7)
+    convolution, a sigmoid, two 3x3x3 convolutions, a sigmoid, and a
+    (T, H, W) mask on the input. The convolutions carry a bias."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv2d = Conv3d(2, 1, (1, 7, 7), bias=True)
+        self.conv3d_1 = Conv3d(1, 1, 3, bias=True)
+        self.conv3d_2 = Conv3d(1, 1, 3, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, C, T, H, W)
+        m = torch.cat([x.mean(dim=1, keepdim=True),
+                       x.amax(dim=1, keepdim=True)], dim=1)
+        m = torch.sigmoid(self.conv2d(m))
+        return x * torch.sigmoid(self.conv3d_2(self.conv3d_1(m)))
+
+
+@contextlib.contextmanager
+def _frozen_stats(block: nn.Module):
+    """The BatchNorms of ``block`` keep their running statistics."""
+    norms = [m for m in block.modules() if isinstance(m, _FlaxRunningVar)]
+    for m in norms:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen_stats = False
+
+
+def _remat_contexts(block: nn.Module):
+    """``checkpoint``'s (forward, recompute) contexts: the recomputation
+    runs with the block's running statistics frozen."""
+    return contextlib.nullcontext(), _frozen_stats(block)
+
+
 class ResNet3D(nn.Module):
     """The 3-D ResNet encoder (reference models/resnet.py:100-312).
 
-    Input ``(B, T, H, W, C)``; returns the projection ``(B, out_dim)`` when
-    ``projection_head`` is on, else the pooled backbone features."""
+    Input ``(B, T, H, W, C)``. Returns, as the JAX module: ``(projection,
+    ds_logits)`` with ``predict_temporal_ds``; else class logits with
+    ``classifier``; else the projection ``(B, out_dim)`` when
+    ``projection_head`` is on, or the pooled backbone features. With
+    ``classifier`` the projection head still runs (its BatchNorm
+    statistics move in training, as in the JAX module)."""
 
     def __init__(self, block: str, layers: Sequence[int],
                  block_inplanes: Sequence[int] = (64, 128, 256, 512),
@@ -118,20 +236,29 @@ class ResNet3D(nn.Module):
                  predict_temporal_ds: bool = False, attention: bool = False,
                  classifier: bool = False, num_classes: int = 101,
                  dropout: Optional[float] = None, stem_s2d: bool = False,
-                 remat: bool = False):
+                 remat: bool = False,
+                 remat_stages: Optional[Sequence[int]] = None):
         super().__init__()
-        for name, on in (("attention", attention), ("stem_s2d", stem_s2d),
-                         ("remat", remat), ("classifier", classifier),
-                         ("predict_temporal_ds", predict_temporal_ds)):
-            if on:
-                raise NotImplementedError(f"ResNet3D {name}: {_TODO}")
         block_cls = BasicBlock3d if block == "basic" else Bottleneck3d
         inplanes = [int(p * widen_factor) for p in block_inplanes]
         self.no_max_pool = no_max_pool
         self.projection_head = projection_head
+        self.predict_temporal_ds = predict_temporal_ds
+        self.classifier = classifier
+        self.stem_s2d = stem_s2d
+        self.remat_stages = (set() if not remat else
+                             set(range(1, len(layers) + 1))
+                             if remat_stages is None else set(remat_stages))
+        self.n_stages = len(layers)
+        self.attention = attention
 
-        self.conv1 = Conv3d(n_input_channels, inplanes[0],
-                            (conv1_t_size, 7, 7), (conv1_t_stride, 2, 2))
+        if stem_s2d:
+            self.conv1 = Conv3d(4 * n_input_channels, inplanes[0],
+                                (conv1_t_size, 4, 4), (conv1_t_stride, 1, 1),
+                                padding=(conv1_t_size // 2, 2, 2))
+        else:
+            self.conv1 = Conv3d(n_input_channels, inplanes[0],
+                                (conv1_t_size, 7, 7), (conv1_t_stride, 2, 2))
         self.bn1 = BatchNorm(inplanes[0])
         in_ch = inplanes[0]
         for stage, (planes, blocks) in enumerate(zip(inplanes, layers), 1):
@@ -143,22 +270,69 @@ class ResNet3D(nn.Module):
                                               shortcut_type))
                 in_ch = planes * block_cls.expansion
             setattr(self, f"layer{stage}", nn.Sequential(*stage_blocks))
+            if attention:
+                setattr(self, f"channel_temporal_attention{stage}",
+                        ChannelTemporalAttention(in_ch))
+                setattr(self, f"spatio_temporal_attention{stage}",
+                        SpatioTemporalAttention())
         if projection_head:
             head = ProjectionHead(in_ch, hidden_layer, out_dim)
             # the reference keeps the head's layers at the top level
             self.fc1, self.bn_proj, self.fc2 = head.fc1, head.bn_proj, head.fc2
+        if predict_temporal_ds:
+            self.temporal_ds_linear = nn.Linear(in_ch, 4)
+        elif classifier:
+            linear = nn.Linear(in_ch, num_classes)
+            nn.init.normal_(linear.weight, std=0.01)
+            nn.init.zeros_(linear.bias)
+            self.linear = (nn.Sequential(Dropout(dropout), linear)
+                           if dropout is not None and dropout > 0.0
+                           else linear)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _stage(self, stage: int, h: torch.Tensor) -> torch.Tensor:
+        remat = (stage in self.remat_stages and self.training
+                 and torch.is_grad_enabled())
+        for block in getattr(self, f"layer{stage}"):
+            if remat:
+                h = checkpoint(block, h, use_reentrant=False,
+                               context_fn=functools.partial(_remat_contexts,
+                                                            block))
+            else:
+                h = block(h)
+        if self.attention:
+            h = getattr(self, f"channel_temporal_attention{stage}")(h)
+            h = getattr(self, f"spatio_temporal_attention{stage}")(h)
+        return h
+
+    def forward(self, x: torch.Tensor,
+                dropout_keep: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """``dropout_keep`` / ``generator``: the classifier's dropout mask,
+        given or drawn (``heads.Dropout``)."""
         assert x.ndim == 5, f"expected (B,T,H,W,C), got {tuple(x.shape)}"
-        h = x.permute(0, 4, 1, 2, 3)  # (B,C,T,H,W), channels_last_3d memory
-        h = F.relu(self.bn1(self.conv1(h)))
+        if self.stem_s2d:
+            h = space_to_depth(x).permute(0, 4, 1, 2, 3)
+            out_h, out_w = h.shape[-2:]
+            h = self.conv1(h)[..., :out_h, :out_w]
+        else:
+            h = self.conv1(x.permute(0, 4, 1, 2, 3))  # channels_last_3d
+        h = F.relu(self.bn1(h))
         if not self.no_max_pool:
             h = max_pool3d(h)
-        h = self.layer4(self.layer3(self.layer2(self.layer1(h))))
+        for stage in range(1, self.n_stages + 1):
+            h = self._stage(stage, h)
         feat = global_avg_pool(h)
-        if self.projection_head:
-            return ProjectionHead.forward(self, feat)
-        return feat
+        proj = (ProjectionHead.forward(self, feat) if self.projection_head
+                else None)
+        if self.predict_temporal_ds:
+            return proj, self.temporal_ds_linear(feat)
+        if self.classifier:
+            if isinstance(self.linear, nn.Sequential):
+                feat = self.linear[0](feat, keep=dropout_keep,
+                                      generator=generator)
+                return self.linear[1](feat)
+            return self.linear(feat)
+        return proj if self.projection_head else feat
 
 
 _DEPTH_TO_SPEC = {

@@ -33,6 +33,8 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.resnet3d import conv1_kernel_to_s2d
+
 _BLOCK_RE = re.compile(r"^layer(\d)_(\d+)$")
 
 
@@ -50,9 +52,22 @@ def _vec(v) -> torch.Tensor:
     return torch.from_numpy(np.array(v, np.float32))
 
 
-def flax_resnet3d_to_torch(params: Mapping, batch_stats: Mapping
+def _conv1d(v) -> torch.Tensor:  # (k, Cin/groups, Cout) -> (Cout, Cin/groups, k)
+    return torch.from_numpy(np.array(
+        np.transpose(np.asarray(v, np.float32), (2, 1, 0))))
+
+
+_ATTENTION_RE = re.compile(r"^(channel|spatio)_temporal_attention\d$")
+
+
+def flax_resnet3d_to_torch(params: Mapping, batch_stats: Mapping,
+                           use_dropout: bool = False
                            ) -> Dict[str, torch.Tensor]:
-    """flax ResNet3D trees -> torch state_dict (reference key names)."""
+    """flax ResNet3D trees -> torch state_dict (reference key names). The
+    attention blocks keep their flax module names (``models/resnet3d.py``);
+    the classifier is ``linear``, or ``linear.1`` behind a dropout
+    (``use_dropout``), as the reference names it. An s2d stem's kernel
+    carries over as it is."""
     sd: Dict[str, torch.Tensor] = {}
 
     def put_bn(prefix: str, p: Mapping, s: Mapping) -> None:
@@ -89,6 +104,18 @@ def flax_resnet3d_to_torch(params: Mapping, batch_stats: Mapping
                 sd[f"{fc}.weight"] = _dense(p[fc]["kernel"])
                 sd[f"{fc}.bias"] = _vec(p[fc]["bias"])
             put_bn("bn_proj", p["bn_proj"], s["bn_proj"])
+        elif name in ("temporal_ds_linear", "linear"):
+            prefix = "linear.1" if name == "linear" and use_dropout else name
+            sd[f"{prefix}.weight"] = _dense(p["kernel"])
+            sd[f"{prefix}.bias"] = _vec(p["bias"])
+        elif _ATTENTION_RE.match(name):
+            for sub, leaf in p.items():
+                leaf = leaf.get("Conv_0", leaf)
+                k = np.asarray(leaf["kernel"])
+                sd[f"{name}.{sub}.weight"] = (
+                    _conv(k) if k.ndim == 5 else _conv1d(k) if k.ndim == 3
+                    else _dense(k))
+                sd[f"{name}.{sub}.bias"] = _vec(leaf["bias"])
         else:
             raise KeyError(f"unmapped flax module {name!r} (not ported)")
     return sd
@@ -263,13 +290,22 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
 _HEAD_PREFIXES = ("fc1.", "bn_proj.", "fc2.")
 
 
+def _is_s2d_for(own: torch.Tensor, v: torch.Tensor) -> bool:
+    """A 7x7 stem weight offered to a space-to-depth stem (the JAX
+    ``torch_resnet3d_to_flax(stem_s2d=True)`` transform)."""
+    return (own.ndim == v.ndim == 5 and tuple(own.shape[-2:]) == (4, 4)
+            and tuple(v.shape[-2:]) == (7, 7)
+            and own.shape[1] == 4 * v.shape[1])
+
+
 def load_encoder_state(model: torch.nn.Module,
                        state_dict: Mapping[str, torch.Tensor],
                        verbose: bool = True) -> Dict[str, list]:
     """Load every tensor of ``state_dict`` whose name (a leading
     ``backbone.`` dropped where ``model`` has no such name) and shape
     match a tensor of ``model``, as the JAX package's partial load does
-    (``merge_pretrained``). Prints what it skipped and what it kept at
+    (``merge_pretrained``); a 7x7 ``conv1.weight`` offered to a
+    space-to-depth stem is transformed to it (``conv1_kernel_to_s2d``). Prints what it skipped and what it kept at
     init; raises ``KeyError`` when a backbone weight or statistic (anything
     outside the projection head but the ``num_batches_tracked`` counters)
     gets no value. -> the names loaded, skipped and missing."""
@@ -279,6 +315,8 @@ def load_encoder_state(model: torch.nn.Module,
         name = k
         if k not in own and k.startswith("backbone."):
             name = k[len("backbone."):]
+        if name == "conv1.weight" and name in own and _is_s2d_for(own[name], v):
+            v = conv1_kernel_to_s2d(v)
         if name in own and tuple(own[name].shape) == tuple(v.shape):
             loaded[name] = v.to(own[name].dtype)
         else:
@@ -327,12 +365,16 @@ def checkpoint_dir(output_path: str, arch: str) -> str:
 def save_checkpoint(output_path: str, arch: str, model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer, schedule, epoch: int,
                     best_prec1: float, is_best: bool = False,
-                    keep_every: int = 200) -> str:
+                    keep_every: int = 200,
+                    banks: Optional[Mapping[str, torch.nn.Module]] = None
+                    ) -> str:
     """Save under <out>/tnet_checkpoints/<arch>/ (reference
     model_utils.py:161-176, online_train.py:749-776): ``checkpoint.pth.tar``
     (overwritten), a ``model_best.pth.tar`` copy when ``is_best``, and
-    ``checkpoint_<epoch + 1>.pth.tar`` every ``keep_every`` epochs. ->
-    the checkpoint's path."""
+    ``checkpoint_<epoch + 1>.pth.tar`` every ``keep_every`` epochs. The
+    loss-side ``banks`` (``mem_triplet``, ``nce``, ``memory_moco``: the JAX
+    package's ``_BANK_FIELDS``) go under ``"banks"``, so a resumed run does
+    not start them afresh. -> the checkpoint's path."""
     base = checkpoint_dir(output_path, arch)
     os.makedirs(base, exist_ok=True)
     payload = {
@@ -343,6 +385,10 @@ def save_checkpoint(output_path: str, arch: str, model: torch.nn.Module,
         "optimizer": optimizer.state_dict(),
         "lr_schedule": schedule.state_dict(),
     }
+    if banks:
+        payload["banks"] = {name: {k: v.detach().cpu() for k, v in
+                                   bank.state_dict().items()}
+                            for name, bank in banks.items()}
     path = os.path.join(base, CHECKPOINT)
     tmp = path + ".tmp"
     torch.save(payload, tmp)
@@ -394,15 +440,51 @@ def _restore_optimizer(optimizer: torch.optim.Optimizer, saved: Optional[dict],
     return len(fresh)
 
 
+def _restore_banks(banks: Mapping[str, torch.nn.Module], saved: Mapping,
+                   verbose: bool = True) -> None:
+    """Pour saved bank buffers into the live banks. A bank, or a buffer,
+    that the checkpoint lacks or holds at another shape stays fresh,
+    loudly (the JAX package's ``_pour_flat``)."""
+    for name, bank in banks.items():
+        own, got = bank.state_dict(), saved.get(name) or {}
+        take = {k: v.to(own[k].dtype) for k, v in got.items()
+                if k in own and tuple(v.shape) == tuple(own[k].shape)}
+        bank.load_state_dict(take, strict=False)
+        fresh = [k for k in own if k not in take]
+        if fresh and verbose:
+            print(f"WARNING: restore[{name}]: {len(fresh)}/{len(own)} "
+                  "buffers had no matching saved value and stay freshly "
+                  f"initialized (first: {fresh[0]})")
+    for name in saved:
+        if name not in banks and verbose:
+            print(f"WARNING: restore[{name}]: checkpoint carries a {name} "
+                  "bank but the run has none (LOSS.TYPE changed?); "
+                  "discarding it")
+
+
+def load_bank_state(bank: torch.nn.Module, fields: Mapping) -> None:
+    """Carry a JAX bank (``MemTripletState``, ``NCEAverageState`` or
+    ``MemoryMoCoState``, as a mapping of its fields to numpy arrays) into
+    the port's bank, whose buffers bear the same names. Every buffer must
+    get a value; a field that is None (no intra-negative bank) is
+    skipped."""
+    own = bank.state_dict()
+    sd = {k: torch.from_numpy(np.array(v)).to(own[k].dtype)
+          for k, v in fields.items() if v is not None}
+    bank.load_state_dict(sd, strict=True)
+
+
 def restore_train_state(model: torch.nn.Module,
                         optimizer: torch.optim.Optimizer, schedule,
-                        payload: Mapping, verbose: bool = True
+                        payload: Mapping, verbose: bool = True,
+                        banks: Optional[Mapping[str, torch.nn.Module]] = None
                         ) -> Tuple[int, float]:
     """Apply a loaded payload: the weights and BatchNorm statistics (names
     and shapes as ``load_encoder_state`` matches them), the optimizer's
-    state (``_restore_optimizer``) and the schedule's count. A reference
-    checkpoint without an optimizer restores weights only, with a warning.
-    -> (start epoch, best_prec1) (reference model_utils.py:180-211)."""
+    state (``_restore_optimizer``), the schedule's count and the loss-side
+    ``banks`` (``_restore_banks``). A reference checkpoint without an
+    optimizer restores weights only, with a warning. -> (start epoch,
+    best_prec1) (reference model_utils.py:180-211)."""
     sd = {}
     for k, v in payload.get("state_dict", payload).items():
         sd[k[len("module."):] if k.startswith("module.") else k] = v
@@ -416,6 +498,8 @@ def restore_train_state(model: torch.nn.Module,
               "optimizer state; momentum starts fresh")
     if "lr_schedule" in payload:
         schedule.load_state_dict(payload["lr_schedule"])
+    if banks or payload.get("banks"):
+        _restore_banks(banks or {}, payload.get("banks") or {}, verbose)
     epoch = int(payload.get("epoch", 0))
     best = float(payload.get("best_prec1", 0.0))
     if verbose:

@@ -8,21 +8,24 @@ Per epoch:
     set the positive sampling p to 1 - NMI, write ``vid_clusters.txt`` and
     rebuild the triplet loader on the pseudo-labels
     (``iterative_cluster_step``, reference online_train.py:599-667);
-  * the triplet epoch: device augmentation, one train step a batch
-    (``train/steps.py``), metrics read on the host only at log points;
+  * the triplet or contrastive epoch (``LOSS.TYPE``): device
+    augmentation, one train step a batch (``train/steps.py``), metrics
+    read on the host only at log points;
   * validation, retrieval every TRAIN.RETRIEVAL_INTERVAL epochs (it
     decides ``is_best``), and checkpoints, with ``--vector``'s
     every-epoch copy at the stable ``--checkpoint_path`` root.
 
-The random draws (augmentation, triplet mining) come from one
-``torch.Generator`` on the device, reseeded per step from 1234 (the JAX
-driver's ``base_key``), the epoch and the batch index, so a resumed run
-draws what an uninterrupted one would. Its stream is not ``jax.random``'s
-(ROADMAP hazard H2): the two packages train on different draws.
+The random draws (augmentation, triplet mining, NCE negatives, shuffled
+views) come from one ``torch.Generator`` on the device, reseeded per step
+from 1234 (the JAX driver's ``base_key``), the epoch and the batch index,
+so a resumed run draws what an uninterrupted one would. Its stream is not
+``jax.random``'s (ROADMAP hazard H2): the two packages train on different
+draws. The loss-side banks (``LOSS.MEM_TRIPLET``, the NCE banks, the MoCo
+queue) are saved with each checkpoint and restored on resume.
 
-Not ported: LOSS.TYPE ``contrastive`` and ``UberNCE`` (ROADMAP items
-15-16) and more than one device (``--num_shards > 1``, a TPU.MESH_SHAPE
-over several devices; item 10) raise ``NotImplementedError``.
+Not ported: LOSS.TYPE ``UberNCE`` (ROADMAP item 16) and more than one
+device (``--num_shards > 1``, a TPU.MESH_SHAPE over several devices; item
+10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -179,6 +182,93 @@ def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
     return losses.avg
 
 
+def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
+                            generator: torch.Generator,
+                            is_master: bool = True, sink=None,
+                            device="cuda") -> float:
+    """One contrastive (NCE) epoch (reference contrastive_train_epoch,
+    online_train.py:136-225) -> mean loss. The two views are the triplet
+    loader's anchor and positive clips; with ``DATASET.MODALITY`` other
+    than ``rgb`` (the ``res`` rule of the JAX driver) the second view is
+    the frame residual of the first, taken in the step, and the positive
+    clip is dropped before its upload and augmentation."""
+    modality = contrastive_modality(cfg)
+    losses = AverageMeter("loss")
+    v1_loss = AverageMeter("view1_loss")
+    v2_loss = AverageMeter("view2_loss")
+    start = time.time()
+    thru = Throughput()
+    pending = []
+
+    def update(metrics, bsz):
+        losses.update(float(metrics["loss"]), bsz)
+        v1_loss.update(float(metrics["view1_loss"]), bsz)
+        v2_loss.update(float(metrics["view2_loss"]), bsz)
+
+    accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
+    for batch_idx, batch in enumerate(train_loader):
+        generator.manual_seed(step_seed(epoch, batch_idx))
+        if modality == "res":
+            batch = {k: v for k, v in batch.items() if k != "positive"}
+        dev_batch = _device_batch(batch, cfg, generator, train=True,
+                                  device=device, accum=accum)
+        step_batch = {"view1": dev_batch["anchor"],
+                      "index": dev_batch["index"]}
+        if modality != "res":
+            step_batch["view2"] = dev_batch["positive"]
+        metrics = step_fn(step_batch, generator)
+        pending.append((metrics, batch["__size__"]))
+        thru.tick(batch["__size__"])
+        if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
+            _drain(pending, update)
+            print(f"Train Epoch: {epoch} [{losses.count}]\t"
+                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})\t"
+                  f"{thru.items_per_sec:.1f} clips/s")
+            if sink:
+                it = epoch * len(train_loader) + batch_idx
+                sink.add_scalar("train/loss", losses.val, it)
+                sink.add_scalar("train/view1_loss", v1_loss.val, it)
+                sink.add_scalar("train/view2_loss", v2_loss.val, it)
+    _drain(pending, update)
+    if is_master:
+        runtime_h = (time.time() - start) / 3600
+        print(f"\nTrain set: Average loss: {losses.avg:.4f} "
+              f"({thru.items_per_sec:.1f} clips/s steady-state)")
+        append_metric_line(cfg.OUTPUT_PATH, "train_loss_and_acc.txt",
+                           f"epoch:{epoch} runtime:{round(runtime_h, 2)} "
+                           f"{losses.avg:.4f}")
+        if sink:
+            sink.add_scalar("epoch/train_loss", losses.avg, epoch)
+    return losses.avg
+
+
+def contrastive_modality(cfg) -> str:
+    """``rgb`` when ``DATASET.MODALITY`` says so, else ``res`` (the JAX
+    driver's rule; the default ``False`` gives ``res``)."""
+    return "rgb" if str(cfg.DATASET.MODALITY) == "rgb" else "res"
+
+
+def make_train_step(cfg, model, optimizer, schedule, banks, device="cuda"):
+    """LOSS.TYPE dispatch (reference online_train.py:675-720; the JAX
+    driver's ``_make_step_and_state``): the step of ``cfg``'s loss over
+    ``banks`` (``steps.make_banks``) -> (step, epoch function)."""
+    from .steps import make_contrastive_train_step, make_triplet_train_step
+
+    if cfg.LOSS.TYPE == "triplet":
+        kw = {"bank": banks["mem_triplet"]} if banks else {}
+        return (make_triplet_train_step(cfg, model, optimizer, schedule,
+                                        device=device, **kw),
+                triplet_train_epoch)
+    intra_neg = bool(cfg.LOSS.INTRA_NEGATIVE)
+    use_moco = "memory_moco" in banks
+    step = make_contrastive_train_step(
+        cfg, model, optimizer, schedule,
+        banks["memory_moco" if use_moco else "nce"],
+        modality=contrastive_modality(cfg), intra_neg=intra_neg,
+        use_moco=use_moco, device=device)
+    return step, contrastive_train_epoch
+
+
 def iterative_cluster_step(model, cfg, eval_train_loader,
                            is_master: bool = True, sink=None,
                            epoch: int = 0,
@@ -230,11 +320,11 @@ def iterative_cluster_step(model, cfg, eval_train_loader,
 
 
 def _check_supported(args, cfg) -> None:
-    if cfg.LOSS.TYPE in ("contrastive", "UberNCE"):
+    if cfg.LOSS.TYPE == "UberNCE":
         raise NotImplementedError(
-            f"LOSS.TYPE {cfg.LOSS.TYPE!r}: not ported yet (ROADMAP.md, "
-            "queue 1, items 15-16)")
-    if cfg.LOSS.TYPE != "triplet":
+            "LOSS.TYPE 'UberNCE': not ported yet (ROADMAP.md, queue 1, "
+            "item 16)")
+    if cfg.LOSS.TYPE not in ("triplet", "contrastive"):
         raise AssertionError(f"Loss Type:{cfg.LOSS.TYPE} not recognized "
                              "(reference online_train.py:719-720)")
     mesh = [int(d) for d in (cfg.TPU.MESH_SHAPE or [])]
@@ -246,14 +336,15 @@ def _check_supported(args, cfg) -> None:
 
 
 def train(args, cfg, device="cuda"):
-    """The triplet pretrain loop on one device (reference
-    online_train.train, :441-776). -> (model, optimizer, schedule)."""
+    """The pretrain loop on one device, triplet or contrastive (reference
+    online_train.train, :441-776). -> (model, optimizer, schedule,
+    banks)."""
     from ..models import model_selector
     from .checkpoint import (load_checkpoint, load_encoder_state,
                              load_torch_checkpoint, resolve_checkpoint,
                              restore_train_state, save_checkpoint)
     from .state import make_optimizer
-    from .steps import make_triplet_train_step
+    from .steps import make_banks
 
     _check_supported(args, cfg)
     dev = resolve_device(device)
@@ -314,6 +405,8 @@ def train(args, cfg, device="cuda"):
         model.to(memory_format=torch.channels_last_3d)
     optimizer, schedule = make_optimizer(cfg, model.parameters(),
                                          steps_per_epoch=len(train_loader))
+    with torch.random.fork_rng(devices=[]):
+        banks = make_banks(cfg, len(train_loader.dataset))
 
     # --pretrain_path: weights only, no epoch or optimizer resume
     # (reference load_pretrained_model, models/model_utils.py:148-156)
@@ -323,10 +416,10 @@ def train(args, cfg, device="cuda"):
             pretrain_path)["torch_state_dict"], verbose=is_master)
     if payload is not None:
         restore_train_state(model, optimizer, schedule, payload,
-                            verbose=is_master)
+                            verbose=is_master, banks=banks)
 
-    step_fn = make_triplet_train_step(cfg, model, optimizer, schedule,
-                                      device=dev)
+    step_fn, epoch_fn = make_train_step(cfg, model, optimizer, schedule,
+                                        banks, device=dev)
     generator = torch.Generator(device=dev)
     sink = MetricsSink(os.path.join(cfg.OUTPUT_PATH, "metrics"),
                        enabled=bool(cfg.TRAIN.METRICS_SINK) and is_master)
@@ -345,8 +438,8 @@ def train(args, cfg, device="cuda"):
             train_loader = make_train_loader()
 
         train_loader.set_epoch(epoch)
-        triplet_train_epoch(step_fn, train_loader, cfg, epoch, generator,
-                            is_master, sink=sink, device=dev)
+        epoch_fn(step_fn, train_loader, cfg, epoch, generator, is_master,
+                 sink=sink, device=dev)
 
         acc, topk = validate(model, cfg, val_loader, epoch, is_master,
                              device=dev)
@@ -376,9 +469,10 @@ def train(args, cfg, device="cuda"):
                           or epoch == cfg.TRAIN.EPOCHS - 1):
             save_checkpoint(cfg.OUTPUT_PATH, cfg.MODEL.ARCH, model,
                             optimizer, schedule, epoch, best_prec1,
-                            is_best=is_best)
+                            is_best=is_best, banks=banks)
         if vector and getattr(args, "checkpoint_path", None):
             save_checkpoint(args.checkpoint_path, cfg.MODEL.ARCH, model,
-                            optimizer, schedule, epoch, best_prec1)
+                            optimizer, schedule, epoch, best_prec1,
+                            banks=banks)
     sink.close()
-    return model, optimizer, schedule
+    return model, optimizer, schedule, banks

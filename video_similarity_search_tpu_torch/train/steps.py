@@ -1,7 +1,9 @@
 """Train and eval steps (port of the JAX package's ``train/steps.py``):
 the eval-mode embedding forward, the triplet step (reference
-``triplet_train_epoch``, online_train.py:245-434) and the supervised
-classification step (reference coclr_classify.py:395-458).
+``triplet_train_epoch``, online_train.py:245-434; with ``LOSS.MEM_TRIPLET``
+against a labelled bank), the contrastive NCE / MemoryMoCo step (reference
+``contrastive_train_epoch``, :136-225) and the supervised classification
+step (reference coclr_classify.py:395-458).
 
 On CUDA they run the forward under ``torch.autocast`` in
 ``TPU.COMPUTE_DTYPE`` (bfloat16 by default, as the JAX package's registry
@@ -20,9 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
-from ..losses import (INTRA_NEG_LAMBDA, RSP_LAMBDA, intra_neg_loss, llc_loss,
+from ..losses import (INTRA_NEG_LAMBDA, RSP_LAMBDA, MemoryMoCo,
+                      MemTripletLoss, NCEAverage, intra_neg_loss, llc_loss,
+                      memory_moco_logits, nce_softmax_loss,
                       online_triplet_loss, rsp_loss)
-from ..models.registry import compute_dtype
+from ..models.registry import compute_dtype, embedding_dim
 from ..utils.device import resolve_device
 
 
@@ -49,6 +53,33 @@ def _prepare(cfg, model: torch.nn.Module, device) -> tuple:
     return dev, dtype
 
 
+def _first(out):
+    """A model's embedding: the first entry of a tuple output (the
+    temporal-downsample head's ``(projection, ds_logits)``), as the JAX
+    ``_encode`` keeps it."""
+    return out[0] if isinstance(out, tuple) else out
+
+
+def make_banks(cfg, n_data: int) -> Dict[str, torch.nn.Module]:
+    """The loss-side banks that ``cfg`` trains with, on the CPU (the JAX
+    driver's ``_make_step_and_state``): ``mem_triplet`` for
+    ``LOSS.MEM_TRIPLET``; for ``LOSS.TYPE contrastive`` the ``memory_moco``
+    queue with ``LOSS.MOCO`` (and no intra-negative), else the ``nce``
+    per-sample banks over the ``n_data`` training videos."""
+    loss = cfg.LOSS
+    if loss.TYPE == "triplet" and loss.MEM_TRIPLET:
+        return {"mem_triplet": MemTripletLoss(K=loss.MEM_TRIPLET_K,
+                                              dim=embedding_dim(cfg))}
+    if loss.TYPE != "contrastive":
+        return {}
+    if loss.MOCO and not loss.INTRA_NEGATIVE:
+        return {"memory_moco": MemoryMoCo(loss.K, loss.FEAT_DIM, T=loss.T,
+                                          use_softmax=True)}
+    return {"nce": NCEAverage(n_data, loss.FEAT_DIM, K=loss.K, T=loss.T,
+                              momentum=loss.M, use_softmax=True,
+                              intra_neg=bool(loss.INTRA_NEGATIVE))}
+
+
 def make_embed_step(cfg, model: torch.nn.Module,
                     device="cuda") -> Callable[[torch.Tensor], torch.Tensor]:
     """-> ``step(clips)``: normalized float (B,T,H,W,C) clips on ``device``
@@ -64,9 +95,7 @@ def make_embed_step(cfg, model: torch.nn.Module,
         with torch.inference_mode(), torch.autocast(
                 dev.type, dtype=dtype, enabled=use_amp):
             out = model(clips)
-        if isinstance(out, tuple):
-            out = out[0]
-        return out.float()
+        return _first(out).float()
 
     return step
 
@@ -125,12 +154,14 @@ def make_classify_train_step(cfg, model: torch.nn.Module,
     return step
 
 
-def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda"
-                         ) -> Callable:
+def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
+                         bank: Optional[MemTripletLoss] = None) -> Callable:
     """The triplet step's loss body (the JAX ``make_triplet_loss_fn``):
     ``loss_fn(batch, noise=None, generator=None)`` -> (loss, aux) with aux
     ``triplet_loss``, ``aux_loss``, ``n_triplets`` and ``negatives`` (the
-    miner's picks).
+    miner's picks). With ``LOSS.MEM_TRIPLET`` the triplets are mined
+    against ``bank`` (``losses/mem_triplet.py``), which each call advances,
+    and ``negatives`` are queue slots.
 
     ``batch``: normalized ``anchor``, ``positive`` and, when a
     relative-speed, local-local or intra-negative loss is on, ``extra``
@@ -139,11 +170,13 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda"
     ``cat([anchor, positive, extra])``, so BatchNorm sees all 3B clips, as
     the reference's TripletNet does. ``noise`` / ``generator``: the
     miner's draws (``losses/triplet.py``)."""
-    if cfg.LOSS.MEM_TRIPLET:
-        raise NotImplementedError(
-            "LOSS.MEM_TRIPLET: not ported yet (ROADMAP.md, queue 1, "
-            "item 15: losses/mem_triplet.py)")
+    use_mem = bool(cfg.LOSS.MEM_TRIPLET)
+    if use_mem and bank is None:
+        raise ValueError("LOSS.MEM_TRIPLET trains against a bank: pass "
+                         "make_banks(cfg, n)['mem_triplet']")
     dev, dtype = _prepare(cfg, model, device)
+    if use_mem:
+        bank.to(dev)
     use_amp = dtype != torch.float32
     margin = cfg.LOSS.MARGIN
     metric = cfg.LOSS.DIST_METRIC
@@ -164,9 +197,10 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda"
         if use_rsp or use_llc or use_intra:
             clips.append(batch["extra"])
         with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
-            emb = model(torch.cat(clips, 0))
+            emb = _first(model(torch.cat(clips, 0)))
         emb = emb.float()
-        t_loss, n_triplets, negatives = online_triplet_loss(
+        mine = bank if use_mem else online_triplet_loss
+        t_loss, n_triplets, negatives = mine(
             emb[:2 * b], batch["targets"], margin=margin, dist_metric=metric,
             sampling_strategy=strategy, noise=noise, generator=generator)
         aux_loss = torch.zeros((), device=emb.device)
@@ -190,7 +224,9 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda"
 
 def make_triplet_train_step(cfg, model: torch.nn.Module,
                             optimizer: torch.optim.Optimizer, schedule,
-                            device="cuda") -> Callable:
+                            device="cuda",
+                            bank: Optional[MemTripletLoss] = None
+                            ) -> Callable:
     """Step for LOSS.TYPE='triplet' (the JAX ``make_triplet_train_step``):
     ``step(batch, generator=None, noise=None)`` runs forward, loss,
     backward, ``optimizer.step()`` and ``schedule.step()`` and returns the
@@ -201,12 +237,13 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
     ``TRAIN.ACCUM_STEPS = A > 1``: batch leaves arrive (A, b, ...) and the
     A microbatches run in sequence; their gradients are summed and divided
     by A, the optimizer steps once, BatchNorm statistics chain through the
-    microbatches (each forward updates them in turn), the loss metrics are
-    the microbatch means and ``n_triplets`` their sum. ``noise`` is then a
-    sequence of A per-microbatch draws. Mining and BatchNorm are
-    microbatch-local, as in the JAX scan."""
+    microbatches (each forward updates them in turn), as does the
+    ``LOSS.MEM_TRIPLET`` bank, the loss metrics are the microbatch means
+    and ``n_triplets`` their sum. ``noise`` is then a sequence of A
+    per-microbatch draws. Mining and BatchNorm are microbatch-local, as in
+    the JAX scan."""
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
-    loss_fn = make_triplet_loss_fn(cfg, model, device)
+    loss_fn = make_triplet_loss_fn(cfg, model, device, bank)
     params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict[str, torch.Tensor],
@@ -246,5 +283,122 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
             schedule.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else v
                 for k, v in metrics.items()}
+
+    return step
+
+
+def diff_view(x: torch.Tensor) -> torch.Tensor:
+    """The residual (``res``) view: the frame difference along T, moved to
+    [0, 1] (reference online_train.py:228-230)."""
+    return ((x - torch.roll(x, 1, dims=1)) + 1.0) / 2.0
+
+
+def shuffle_view(x: torch.Tensor, perms: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None,
+                 block_size: int = 2) -> torch.Tensor:
+    """The intra-negative view: each clip's frames shuffled in blocks of
+    ``block_size`` by its own permutation (reference
+    datasets/temporal_transforms.py Shuffle, :233-246); trailing frames
+    that fill no block keep their place. ``perms`` (B, T // block_size)
+    gives the permutations, or they are drawn from ``generator``."""
+    b, t = x.shape[0], x.shape[1]
+    n_blocks = t // block_size
+    if perms is None:
+        perms = torch.rand(b, n_blocks, generator=generator,
+                           device=generator.device).argsort(dim=1)
+    perms = perms.to(x.device).long()
+    idx = (perms[:, :, None] * block_size
+           + torch.arange(block_size, device=x.device)).reshape(b, -1)
+    if idx.shape[1] < t:
+        tail = torch.arange(idx.shape[1], t, device=x.device)
+        idx = torch.cat([idx, tail.expand(b, -1)], dim=1)
+    return torch.take_along_dim(x, idx[:, :, None, None, None], dim=1)
+
+
+def make_contrastive_train_step(cfg, model: torch.nn.Module,
+                                optimizer: torch.optim.Optimizer, schedule,
+                                bank: torch.nn.Module, modality: str = "rgb",
+                                intra_neg: bool = False,
+                                use_moco: bool = False,
+                                device="cuda") -> Callable:
+    """Step for LOSS.TYPE='contrastive' (the JAX
+    ``make_contrastive_train_step``; reference contrastive_train_epoch,
+    online_train.py:136-225): ``step(batch, generator=None, nce_idx=None,
+    shuffle_perm=None)`` with ``batch`` {``view1``, ``view2`` (unused for
+    ``modality='res'``, whose second view is ``diff_view(view1)``),
+    ``index`` (B,)} -> metrics ``loss``, ``view1_loss``, ``view2_loss``,
+    ``view1_prob``, ``view2_prob`` as device tensors.
+
+    Each view goes through its own train-mode forward, so BatchNorm
+    normalizes it by its own batch statistics and the running statistics
+    take one update a view, in order (ROADMAP hazard H8: the JAX step
+    vmaps the views and merges their statistics to exactly this). The
+    views score against ``bank`` (``make_banks``): ``NCEAverage`` (with
+    ``intra_neg`` a third, block-shuffled view of view1 into its third
+    bank) or, with ``use_moco``, the ``MemoryMoCo`` queue: view1 queries
+    with view2 keys advance it, and view2's logits score against the queue
+    as it was before. Both losses are softmax cross-entropy. The draws are
+    the NCE negatives ``nce_idx`` (B, K+1) and the shuffle permutations,
+    injected or drawn from ``generator``; with ``TRAIN.ACCUM_STEPS`` A > 1
+    the batch leaves are (A, b, ...), the injections sequences of A, and
+    the bank and BatchNorm statistics chain through the microbatches."""
+    dev, dtype = _prepare(cfg, model, device)
+    bank.to(dev)
+    use_amp = dtype != torch.float32
+    accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
+    temperature = cfg.LOSS.T
+    params = [p for p in model.parameters() if p.requires_grad]
+    names = ("loss", "view1_loss", "view2_loss", "view1_prob", "view2_prob")
+
+    def encode(clips):
+        with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+            return _first(model(clips)).float()
+
+    def loss_fn(batch, generator, nce_idx, perm):
+        view1 = batch["view1"]
+        views = [view1, diff_view(view1) if modality == "res"
+                 else batch["view2"]]
+        if intra_neg and not use_moco:
+            views.append(shuffle_view(view1, perm, generator))
+        feats = [encode(v) for v in views]
+        if use_moco:
+            out2 = memory_moco_logits(bank.memory, feats[1], feats[0],
+                                      T=temperature)
+            out1 = bank(feats[0], feats[1])
+        else:
+            out1, out2 = bank(feats[0], feats[1], batch["index"],
+                              neg=feats[2] if intra_neg else None,
+                              idx=nce_idx, generator=generator)
+        l1, l2 = nce_softmax_loss(out1), nce_softmax_loss(out2)
+        return l1 + l2, (l1, l2, out1[:, 0].mean(), out2[:, 0].mean())
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None,
+             nce_idx=None, shuffle_perm=None) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        def nth(v, a):  # microbatch a's leaf or injected draw
+            return v if accum == 1 or v is None else v[a]
+
+        parts = []
+        for a in range(accum):
+            mb = {k: nth(v, a) for k, v in batch.items()}
+            with record_function(RANGES[0]):
+                loss, aux = loss_fn(mb, generator, nth(nce_idx, a),
+                                    nth(shuffle_perm, a))
+            with record_function(RANGES[1]):
+                loss.backward()
+            parts.append(torch.stack([loss.detach()]
+                                     + [v.detach() for v in aux]))
+        if accum > 1:
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+        with record_function(RANGES[2]):
+            optimizer.step()
+            schedule.step()
+        means = torch.stack(parts).mean(0)
+        return dict(zip(names, means))
 
     return step
