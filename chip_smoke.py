@@ -53,7 +53,7 @@ and the triplet pretrain, on the UCF config at full width:
   train_step  R3D-18 from seed 0 on 32 anchors + 32 positives + 32 anchor2
              = 96 pre-cropped uint8 clips from seed 0: (a) one fp32 step on
              the card held to the CPU (2 anchors; loss, negatives,
-             augmentation) and to an fp64 CPU run (update, BN statistics);
+             augmentation) and to an fp64 run on the card (update, BN statistics);
              (b) bf16 against fp32 and fp64 at full width (loss, gradient
              cosine, n_triplets); (c) ms a bf16 step, its device time split
              into augment / forward+loss / backward / optimizer, clips/s,
@@ -71,7 +71,7 @@ and the classification path of cli/coclr_classify.py at its defaults:
              of 32x128x128x3 from seed 0, 101 classes, dropout 0.9: (a) one
              fp32 --train_what all step on the card held to the CPU (2
              clips, dropout mask injected; top-1/top-5 equal, logits, loss,
-             update and BN statistics held to an fp64 CPU run); (b) fp32
+             update and BN statistics held to an fp64 run on the card); (b) fp32
              against fp64 and bf16 against fp32 at batch 32 (loss, gradient
              cosine, each block's output); (c) ms an fp32 step (the CLI's
              dtype) for last / ft / all and a bf16 all step, each with its
@@ -107,6 +107,28 @@ and the fifth slice, the rest of SLIC's single-device pretrain:
              LOSS.TYPE contrastive and k-means on 10 classes (lr 0.001) for
              an epoch, then a resumed second whose banks must be the saved
              ones, byte-equal
+
+and the sixth slice, SlowFast and the MoCo pretrain:
+
+  slowfast   get_cfg()'s defaults unchanged (SlowFast-50, ALPHA 4, BETA_INV
+             8, fusion ratio 2 and kernel 7, 8x224x224 clips, the triplet
+             loss, 16 anchors + 16 positives = 32 clips, bf16): (a) one
+             fp32 step at 2 anchors held to the CPU and to fp64 on the card;
+             (b) bf16 against fp32 at the full batch; (c) ms a bf16 step,
+             its device split, clips/s, peak GiB and its bound from the
+             hooks' FLOPs at 989 TFLOP/s bf16; (d) 30 steps lower the
+             triplet loss; the eval embed pass at batch 64; a Caffe2 blob
+             .pkl of the model and its inflated 2-D counterpart loaded into
+             the full model; 0 nn1_cosine launches
+  moco       LOSS.TYPE UberNCE with the S3D MoCo encoder (info_nce and
+             uber_nce), 32 anchors of 32x128x128, two views, LOSS.K 1024:
+             ms / clips/s / peak GiB of a bf16 and an fp32 step each; one
+             fp32 step held to fp64 (4 anchors: loss, gradient cosine,
+             queue, pointer, labels, the momentum update's order); 30
+             uber_nce steps lower the loss's excess over its floor; the
+             training CLI with arch uber_nce for an epoch, then a resumed
+             second whose moco bank must be the saved one, byte-equal; 0
+             nn1_cosine launches
 
 then a ``timing`` line of each phase's seconds, the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and ``{"ok": true, "device": {...}}`` as the last line. Each kernel's launch
@@ -419,12 +441,17 @@ def fp64_referee(xn, ki, kd, pi, pd, tile: int = 512) -> dict:
                 parts["kernel"], parts["plain"])}
 
 
-def load_cfg(yaml_path: str, opts) -> object:
+def load_cfg(yaml_path, opts) -> object:
     """A config through the port's own CLI parser: defaults -> YAML ->
-    opts."""
+    opts; without a YAML, get_cfg()'s defaults -> opts."""
     from video_similarity_search_tpu_torch.config import (arg_parser,
+                                                          get_cfg,
                                                           load_config)
 
+    if yaml_path is None:
+        cfg = get_cfg()
+        cfg.merge_from_list([str(v) for v in opts])
+        return cfg
     return load_config(arg_parser().parse_args(
         ["--cfg", yaml_path] + [str(v) for v in opts]))
 
@@ -1188,19 +1215,32 @@ def update_rel_err(after: dict, ref_after: dict, before: dict) -> float:
     return (num / den) ** 0.5
 
 
+def train_views(cfg):
+    """The clip views the triplet step of ``cfg`` takes: anchor and
+    positive, and ``extra`` when a relative-speed, local-local or
+    intra-negative loss is on (the UCF config's local-local contrast; not
+    get_cfg()'s defaults)."""
+    loss = cfg.LOSS
+    extra = (loss.RELATIVE_SPEED_PERCEPTION or loss.LOCAL_LOCAL_CONTRAST
+             or loss.INTRA_NEGATIVE)
+    return TRAIN_VIEWS if extra else TRAIN_VIEWS[:2]
+
+
 def step_vs_cpu(cfg, init, host, cpu_runs=None):
     """(a) One fp32 step (TF32 off) on the card against the same step on
     the CPU: the same weights, batch, augmentation draws and Gumbel draws
     (drawn on the CPU, copied to both), CPU_ANCHORS anchors. The loss, the
     mined negatives and the augmented clips are held to the CPU's. The
     parameter update and the BatchNorm statistics are held to an fp64 run
-    of the same step on the CPU (network in fp64, loss head in fp32): at
-    random init the stem's weight gradient sums ~400k terms that mostly
-    cancel, so two fp32 orders of summation differ by ~1e-3 of the update;
-    the card's fp32 must be no further from fp64 than 3x the CPU's.
-    ``cpu_runs``: a dict that keeps the two CPU runs for the next call of
-    the same arithmetic (remat on all stages and on stage 1), which then
-    runs the card's step only."""
+    of the same step on the card (network in fp64, loss head in fp32; fed
+    the CPU's augmented clips, as the CPU run is; cuDNN runs fp64 3-D
+    convolutions, ~50x faster than the CPU's 36-46 s a step): at random
+    init the stem's weight gradient sums ~400k terms that mostly cancel,
+    so two fp32 orders of summation differ by ~1e-3 of the update; the
+    card's fp32 must be no further from fp64 than 3x the CPU's.
+    ``cpu_runs``: a dict that keeps the CPU and fp64 runs for the next
+    call of the same arithmetic (remat on all stages and on stage 1),
+    which then runs the card's fp32 step only."""
     import torch
 
     from video_similarity_search_tpu_torch.data.augment import (
@@ -1211,29 +1251,33 @@ def step_vs_cpu(cfg, init, host, cpu_runs=None):
     cfg32 = cfg.clone()
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     b, s = CPU_ANCHORS, cfg.DATA.SAMPLE_SIZE
+    views = train_views(cfg)
     gen = torch.Generator().manual_seed(SEED)
-    draws = {k: draw_augment_params(gen, b) for k in TRAIN_VIEWS}
+    draws = {k: draw_augment_params(gen, b) for k in views}
     # the miner's candidates: the batch, or the LOSS.MEM_TRIPLET bank
     n_cand = cfg.LOSS.MEM_TRIPLET_K if cfg.LOSS.MEM_TRIPLET else 2 * b
     noise = gumbel(gen, (2 * b, 2 * b, n_cand))
     labels = torch.tensor([0, 1] * (b // 2) * 2)  # two labels, a pair each
     res = {} if cpu_runs is None else cpu_runs
     for name, dev, dtype in (("cpu", "cpu", torch.float32),
-                             ("cpu64", "cpu", torch.float64),
+                             ("fp64", "cuda", torch.float64),
                              ("cuda", "cuda", torch.float32)):
         if name in res and name != "cuda":
             continue
         model, _, _, step, _ = fresh_trainer(cfg32, init, dev)
         model.to(dtype)
+        aug = "cuda" if name == "cuda" else "cpu"  # where the clips augment
         batch = {k: apply_augment(
-            torch.from_numpy(host[k][:b]).to(dev),
-            {n: v.to(dev) for n, v in draws[k].items()}, s,
-            dataset=cfg.TRAIN.DATASET, pre_cropped=True).to(dtype)
-            for k in TRAIN_VIEWS}
+            torch.from_numpy(host[k][:b]).to(aug),
+            {n: v.to(aug) for n, v in draws[k].items()}, s,
+            dataset=cfg.TRAIN.DATASET, pre_cropped=True).to(dev, dtype)
+            for k in views}
         batch["targets"] = labels.to(dev)
         t0 = time.perf_counter()
         met = step(batch, noise=noise.to(dev))
         loss = float(met["loss"])
+        if dev == "cuda":
+            torch.cuda.synchronize()
         res[name] = {"loss": loss, "n": int(met["n_triplets"]),
                      "neg": met["negatives"].cpu(),
                      "aug": {k: v.cpu().float() for k, v in batch.items()},
@@ -1241,15 +1285,15 @@ def step_vs_cpu(cfg, init, host, cpu_runs=None):
                             for k, v in model.state_dict().items()},
                      "s": time.perf_counter() - t0}
         del model, step, batch
-    c, g, ref = res["cpu"], res.pop("cuda"), res["cpu64"]
+    c, g, ref = res["cpu"], res.pop("cuda"), res["fp64"]
     valid = pair_masks(labels)[0]  # the pairs whose negative counts
     init64 = {k: v.double() for k, v in init.items()}
-    out = {"anchors": b, "clips": 3 * b,
+    out = {"anchors": b, "clips": len(views) * b,
            "loss_cpu": c["loss"], "loss_cuda": g["loss"],
-           "loss_cpu_fp64": ref["loss"],
+           "loss_fp64_card": ref["loss"],
            "loss_rel_diff": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
            "augment_max_abs_diff": max(float((g["aug"][k] - c["aug"][k])
-                                             .abs().max()) for k in TRAIN_VIEWS),
+                                             .abs().max()) for k in views),
            "param_max_abs_diff": max_state_diff(g["sd"], c["sd"], False),
            "update_rel_err_cuda_vs_cpu": update_rel_err(g["sd"], c["sd"],
                                                         init64),
@@ -1264,7 +1308,7 @@ def step_vs_cpu(cfg, init, host, cpu_runs=None):
            "negatives_equal": bool(torch.equal(g["neg"][valid],
                                                c["neg"][valid])),
            "n_triplets": g["n"], "cpu_step_s": c["s"],
-           "cpu_fp64_step_s": ref["s"]}
+           "fp64_card_step_s": ref["s"]}
     check(out["augment_max_abs_diff"] <= 1e-5, "augmentation: card = CPU "
           f"within 1e-5 ({out['augment_max_abs_diff']})")
     check(out["loss_rel_diff"] <= 1e-4, f"fp32 step loss: card = CPU within "
@@ -1282,9 +1326,9 @@ def step_vs_cpu(cfg, init, host, cpu_runs=None):
     return out
 
 
-def bf16_vs_fp32(cfg, init, host):
+def bf16_vs_fp32(cfg, init, host, fp64: bool = True):
     """(b) The full-width bf16 forward and backward against fp32 (TF32 off)
-    and fp64 on the card: the same weights, augmented batch and Gumbel
+    and (``fp64``) fp64 on the card: the same weights, augmented batch and Gumbel
     draws. With the config's ``random_semi_hard`` mining a negative is
     valid only while d_ap + margin > d_an, so a rounding near that edge
     picks another negative; that case is reported. The precision is
@@ -1301,7 +1345,7 @@ def bf16_vs_fp32(cfg, init, host):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = {k: train_augment(torch.from_numpy(host[k]).cuda(), gen,
                               cfg.DATA.SAMPLE_SIZE, dataset=cfg.TRAIN.DATASET,
-                              pre_cropped=True) for k in TRAIN_VIEWS}
+                              pre_cropped=True) for k in train_views(cfg)}
     batch["targets"] = torch.from_numpy(host["targets"]).cuda()
     noise = gumbel(gen, (batch["targets"].shape[0],) * 3)
 
@@ -1311,7 +1355,8 @@ def bf16_vs_fp32(cfg, init, host):
     out = {}
     for strategy, names in (
             (cfg.DATASET.SAMPLING_STRATEGY, ("bfloat16", "float32")),
-            ("random_negative", ("bfloat16", "float32", "float64"))):
+            ("random_negative", ("bfloat16", "float32")
+             + (("float64",) if fp64 else ()))):
         res = {}
         for name in names:
             c = cfg.clone()
@@ -1357,9 +1402,9 @@ def bf16_vs_fp32(cfg, init, host):
     held = out["random_negative"]
     check(held["negatives_agree"] == 1.0, "random_negative: the same "
           "negatives in bf16 and fp32")
-    check(held["fp32_vs_fp64_grad_cosine"] >= FP32_MIN_GRAD_COS
-          and held["fp32_vs_fp64_loss_rel_diff"] <= 1e-5,
-          f"fp32 vs fp64: gradient cosine {held['fp32_vs_fp64_grad_cosine']}"
+    check(not fp64 or (held["fp32_vs_fp64_grad_cosine"] >= FP32_MIN_GRAD_COS
+                       and held["fp32_vs_fp64_loss_rel_diff"] <= 1e-5),
+          f"fp32 vs fp64: gradient cosine {held.get('fp32_vs_fp64_grad_cosine')}"
           f" >= {FP32_MIN_GRAD_COS}, loss within 1e-5 relative")
     check(held["grad_cosine"] >= BF16_MIN_GRAD_COS, "bf16 vs fp32 gradient "
           f"cosine {held['grad_cosine']} >= {BF16_MIN_GRAD_COS}")
@@ -1387,7 +1432,7 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     model, opt, _, step, _ = fresh_trainer(c, init, "cuda")
     dev_u8 = {k: torch.from_numpy(_microbatch_leaf(k, host[k], accum)
                                   if accum > 1 else host[k]).cuda()
-              for k in TRAIN_VIEWS}
+              for k in train_views(c)}
     targets = torch.from_numpy(_microbatch_leaf("targets", host["targets"],
                                                 accum)
                                if accum > 1 else host["targets"]).cuda()
@@ -1425,7 +1470,7 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
 
     split = (device_split_ms(one, TIMED_STEPS, ("augment",) + RANGES)
              if accum == 1 and split else None)
-    clips = 3 * host["targets"].shape[0] // 2
+    clips = len(dev_u8) * host["targets"].shape[0] // 2
     out = {"accum_steps": accum, "step_ms": float(np.median(whole)),
            "step_ms_all": whole, "clips": clips,
            "clips_per_s": clips / (float(np.median(whole)) / 1e3),
@@ -1449,7 +1494,7 @@ def learning_check(cfg, init, rng):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = {k: train_augment(torch.from_numpy(host[k]).cuda(), gen, s,
                               dataset=cfg.TRAIN.DATASET, pre_cropped=True)
-             for k in TRAIN_VIEWS}
+             for k in train_views(cfg)}
     batch["targets"] = torch.from_numpy(host["targets"]).cuda()
     losses = []
     for i in range(LEARN_STEPS):
@@ -1817,9 +1862,9 @@ def phase_train_options():
     """R3D-18 on the UCF config with the train_step phase's 96 in-memory
     clips, one option at a time (LOSS.MEM_TRIPLET with 640 slots,
     RESNET.ATTENTION, TPU.STEM_S2D, TPU.REMAT on all stages and on stage
-    1): one fp32 step on the card held to the CPU and to an fp64 CPU run
+    1): one fp32 step on the card held to the CPU and to an fp64 run on the card
     at 2 anchors, as train_step (a) holds the plain step (both remat
-    options to one pair of CPU runs), and a timed bf16 step; for the s2d
+    options to one CPU and one fp64 run), and a timed bf16 step; for the s2d
     stem its forward beside the 7x7 stem's."""
     import torch
 
@@ -2229,31 +2274,17 @@ def classify_batch(rng, b, n_cls=CLS_CLASSES, structured=False):
 
 
 def clip_flop(net) -> dict:
-    """FLOPs of one clip's forward: 2 x the multiply-adds of every
-    convolution and linear layer (forward hooks on an eval-mode forward of
-    one CLS_T x CLS_S x CLS_S clip; BN, pooling and elementwise work left
-    out), and of the stem's first convolution, whose input needs no
+    """FLOPs of one CLS_T x CLS_S x CLS_S clip's forward (``module_flop``)
+    and of the stem's first convolution, whose input needs no
     gradient."""
     import torch
 
     _, model, _, _, _ = classifier(net, "all", "cuda")
     model.eval()
-    count = collections.Counter()
-
-    def hook(mod, inp, out):
-        per_out = (mod.weight[0].numel() if isinstance(mod, torch.nn.Conv3d)
-                   else mod.in_features)
-        count["forward"] += 2 * out.numel() * per_out
-        if mod is model.backbone.Conv_1a.conv1:
-            count["stem"] += 2 * out.numel() * per_out
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv3d, torch.nn.Linear))]
-    with torch.no_grad():
-        model(torch.zeros((1, CLS_T, CLS_S, CLS_S, 3), device="cuda"))
-    for h in hooks:
-        h.remove()
-    return dict(count)
+    flop = module_flop(model, torch.zeros((1, CLS_T, CLS_S, CLS_S, 3),
+                                          device="cuda"),
+                       [model.backbone.Conv_1a.conv1])
+    return {"forward": flop["forward"], "stem": flop["first"]}
 
 
 def bound(ops: float, nbytes: float, dtype: str, peaks) -> dict:
@@ -2272,8 +2303,8 @@ def classify_vs_cpu(net, host):
     the same step on the CPU: the same weights, CLS_CPU_CLIPS clips and
     dropout mask (drawn on the CPU, copied to both). Top-1/top-5 equal the
     CPU's. The logits, the loss, the update and the BatchNorm statistics
-    are held to an fp64 run of the step on the CPU: the card's fp32 must be
-    no further from it than 3x the CPU's, as in train_step (a)."""
+    are held to an fp64 run of the step on the card: the card's fp32 must
+    be no further from it than 3x the CPU's, as in train_step (a)."""
     import torch
 
     from video_similarity_search_tpu_torch.data.augment import normalize_only
@@ -2283,7 +2314,7 @@ def classify_vs_cpu(net, host):
         SEED)) < 1 - CLS_DROPOUT
     res = {}
     for name, dev, dtype in (("cpu", "cpu", torch.float32),
-                             ("cpu64", "cpu", torch.float64),
+                             ("fp64", "cuda", torch.float64),
                              ("cuda", "cuda", torch.float32)):
         _, model, _, _, step = classifier(net, "all", dev)
         model.to(dtype)
@@ -2299,6 +2330,8 @@ def classify_vs_cpu(net, host):
                     "label": torch.from_numpy(host["label"][:b]).to(dev)},
                    dropout_keep=keep.to(dev))
         loss = float(met["loss"])
+        if dev == "cuda":
+            torch.cuda.synchronize()
         res[name] = {"loss": loss, "s": time.perf_counter() - t0,
                      "top": [float(met["top1"]), float(met["top5"])],
                      "logits": logits[0].cpu().double(),
@@ -2306,13 +2339,13 @@ def classify_vs_cpu(net, host):
                             for k, v in model.state_dict().items()}}
         hook.remove()
         del model, step
-    c, g, ref = res["cpu"], res["cuda"], res["cpu64"]
+    c, g, ref = res["cpu"], res["cuda"], res["fp64"]
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max())
 
     out = {"clips": b, "loss_cpu": c["loss"], "loss_cuda": g["loss"],
-           "loss_cpu_fp64": ref["loss"],
+           "loss_fp64_card": ref["loss"],
            "loss_rel_diff": abs(g["loss"] - c["loss"]) / abs(c["loss"]),
            "logits_rel_diff": rel(g["logits"], c["logits"]),
            "logits_rel_err_cuda_vs_fp64": rel(g["logits"], ref["logits"]),
@@ -2326,7 +2359,7 @@ def classify_vs_cpu(net, host):
                g["sd"], ref["sd"], True),
            "bn_stat_max_abs_diff_cpu_vs_fp64": max_state_diff(
                c["sd"], ref["sd"], True),
-           "cpu_step_s": c["s"], "cpu_fp64_step_s": ref["s"]}
+           "cpu_step_s": c["s"], "fp64_card_step_s": ref["s"]}
     check(g["top"] == c["top"], f"{net} fp32 step: top-1/top-5 {g['top']} "
           f"on the card, {c['top']} on the CPU")
     for what, err, err_cpu, floor in (
@@ -2688,6 +2721,529 @@ def phase_classify_cli(step_clips_per_s: dict):
          retrieval=line[0], classify_step_clips_per_s=step_clips_per_s)
 
 
+# --------------------------------------------------------------------------
+# the sixth slice: SlowFast at get_cfg()'s defaults, its checkpoint import,
+# and the MoCo InfoNCE / UberNCE pretrain
+
+SF_EMBED_BATCH = 64
+# Caffe2 blob suffix of each BatchNorm field (reference c2_model_loading.py)
+C2_BN = {"weight": "s", "bias": "b", "running_mean": "rm",
+         "running_var": "riv"}
+
+
+def caffe2_blob_name(key: str):
+    """A pyslowfast torch name -> its Caffe2 blob name (the inverse of the
+    port's ``caffe2_name_to_torch`` on SlowFast's stems, fusions and
+    blocks); None for the fc1/fc2 projection and the counters, which have
+    no blob."""
+    if key.endswith("num_batches_tracked") or key.startswith(("fc1.",
+                                                              "fc2.")):
+        return None
+    m = re.match(r"^s1\.pathway([01])_stem\.(conv|bn)\.(\w+)$", key)
+    if m:
+        t = "t_" if m.group(1) == "1" else ""
+        return (f"{t}conv1_w" if m.group(2) == "conv"
+                else f"{t}res_conv1_bn_{C2_BN[m.group(3)]}")
+    m = re.match(r"^s(\d)_fuse\.(conv_f2s|bn)\.(\w+)$", key)
+    if m:
+        base = ("t_pool1_subsample" if m.group(1) == "1"
+                else f"t_res{m.group(1)}_0_branch2c_bn_subsample")
+        return (f"{base}_w" if m.group(2) == "conv_f2s"
+                else f"{base}_bn_{C2_BN[m.group(3)]}")
+    m = re.match(r"^s(\d)\.pathway([01])_res(\d+)\.(branch1|branch2\.[abc])"
+                 r"(_bn)?\.(\w+)$", key)
+    if m and m.group(6) in C2_BN:
+        n, p, i, br, bn, field = m.groups()
+        t = "t_" if p == "1" else ""
+        name = f"{t}res{n}_{i}_" + br.replace("branch2.", "branch2")
+        return f"{name}_bn_{C2_BN[field]}" if bn else f"{name}_w"
+    raise RuntimeError(f"check failed: no Caffe2 blob for {key}")
+
+
+def slowfast_checkpoints(model):
+    """The Caffe2 import into the full model: a blob dict made from
+    ``model``'s own state_dict (solver blobs beside it) written as a .pkl
+    loads every backbone tensor unchanged through ``load_torch_checkpoint``
+    and ``load_encoder_state``; its 2-D counterpart (each kernel's
+    temporal slices summed to one (Cout, Cin, kH, kW) kernel) loads with
+    ``inflate_temporal`` as kT copies of it / kT, the BatchNorms as they
+    are."""
+    import pickle
+
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train.checkpoint import (
+        caffe2_name_to_torch, load_encoder_state, load_torch_checkpoint)
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    blobs = {}
+    for k, v in sd.items():
+        name = caffe2_blob_name(k)
+        if name is not None:
+            check(caffe2_name_to_torch(name) == k, f"{name} -> {k}")
+            blobs[name] = v.numpy()
+    flat = {n: (v.sum(axis=2) if v.ndim == 5 else v)
+            for n, v in blobs.items()}
+    out = {"blobs": len(blobs)}
+    for what, payload, inflate in (("caffe2", blobs, False),
+                                   ("caffe2_2d_inflated", flat, True)):
+        path = os.path.join(OUT, f"slowfast_{what}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump({"blobs": {**payload, "model_iter": np.int64(1),
+                                   "lr": np.float32(0.1)}}, f, protocol=2)
+        t0 = time.perf_counter()
+        fresh = model_selector(load_cfg(None, []))
+        got = load_encoder_state(
+            fresh, load_torch_checkpoint(path)["torch_state_dict"],
+            verbose=False, inflate_temporal=inflate)
+        own = fresh.state_dict()
+        worst = 0.0
+        for k in got["loaded"]:
+            want = sd[k]
+            if inflate and want.ndim == 5:
+                kt = want.shape[2]
+                want = (want.sum(dim=2, keepdim=True) / kt).expand_as(want)
+            worst = max(worst, float((own[k] - want).abs().max()))
+        check(len(got["loaded"]) == len(blobs) and got["skipped"] == [],
+              f"{what}: {len(got['loaded'])} of {len(blobs)} blobs loaded")
+        check(worst <= 1e-6, f"{what}: loaded tensors within {worst}")
+        out[what] = {"loaded": len(got["loaded"]),
+                     "kept_at_init": len(got["missing"]),
+                     "max_abs_err": worst,
+                     "load_s": time.perf_counter() - t0,
+                     "file_mib": os.path.getsize(path) / 2 ** 20}
+        os.remove(path)
+    return out
+
+
+def module_flop(model, x, firsts) -> dict:
+    """FLOPs of ``model``'s forward on ``x``: 2 x the multiply-adds of every
+    convolution and linear layer (forward hooks; BN, pooling and
+    elementwise work left out), and of the ``firsts`` layers, whose inputs
+    need no gradient."""
+    import torch
+
+    count = collections.Counter()
+
+    def hook(mod, inp, out):
+        per_out = (mod.weight[0].numel() if isinstance(mod, torch.nn.Conv3d)
+                   else mod.in_features)
+        count["forward"] += 2 * out.numel() * per_out
+        if any(mod is f for f in firsts):
+            count["first"] += 2 * out.numel() * per_out
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv3d, torch.nn.Linear))]
+    with torch.no_grad():
+        model(x)
+    for h in hooks:
+        h.remove()
+    return dict(count)
+
+
+def phase_slowfast(smi: str):
+    """SlowFast at get_cfg()'s defaults, unchanged (SlowFast-50, ALPHA 4,
+    BETA_INV 8, fusion ratio 2 and kernel 7, 8x224x224 clips, the triplet
+    loss with random_semi_hard mining, TRAIN.BATCH_SIZE 16 anchors, bf16):
+    the defaults add no third view, so a step is 16 anchors + 16 positives
+    = 32 clips. (a) one fp32 step at 2 anchors on the card held to the CPU
+    and to fp64 on the card (train_step (a)); (b) bf16 against fp32 at the
+    full batch; (c) ms a bf16 step with its device split, clips/s, peak
+    GiB, and the step's bound from the hooks' FLOPs at the bf16 peak; (d)
+    30 steps lower the triplet loss; the eval embed pass at batch 64; the
+    Caffe2 and inflated 2-D imports into the full model."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.models.slowfast import \
+        multipathway_input
+    from video_similarity_search_tpu_torch.ops import fused_knn
+    from video_similarity_search_tpu_torch.train.steps import make_embed_step
+
+    _, peaks = peaks_for(smi)
+    cfg = load_cfg(None, ["OUTPUT_PATH", os.path.join(OUT, "slowfast")])
+    b, t, s = cfg.TRAIN.BATCH_SIZE, cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    fused_knn.LAUNCHES = 0
+    torch.manual_seed(SEED)
+    model = model_selector(cfg)
+    init = model.state_dict()
+    rng = np.random.default_rng(SEED)
+    host = triplet_batch(rng, b, t, s, n_cls=8)
+    views = train_views(cfg)
+    model.cuda().eval()
+    flop = module_flop(model, multipathway_input(
+        torch.zeros((1, t, s, s, 3), device="cuda"), cfg.SLOWFAST.ALPHA),
+        [model.s1.pathway0_stem.conv, model.s1.pathway1_stem.conv])
+    per_clip = 3 * flop["forward"] - flop["first"]  # no input gradient
+    clips = len(views) * b
+    vs_cpu = step_vs_cpu(cfg, init, host)
+    torch.cuda.empty_cache()
+    vs_fp32 = bf16_vs_fp32(cfg, init, host, fp64=False)
+    torch.cuda.empty_cache()
+    timing = time_steps(cfg, init, host, 1)
+    timing.update(bound(clips * per_clip, sum(host[k].nbytes for k in views)
+                        + 4 * 4 * sum(v.numel() for v in init.values()),
+                        "bfloat16", peaks))
+    torch.cuda.empty_cache()
+    learn = learning_check(cfg, init, rng)
+    torch.cuda.empty_cache()
+    embed = make_embed_step(cfg, model, device="cuda")
+    x = normalize_only(torch.from_numpy(class_clips(
+        rng, rng.integers(0, 8, SF_EMBED_BATCH), t, s, 8)).cuda(),
+        dataset=cfg.TRAIN.DATASET)
+    torch.cuda.reset_peak_memory_stats()
+    emb = embed(x)
+    check(tuple(emb.shape) == (SF_EMBED_BATCH, cfg.SLOWFAST.OUT_DIM)
+          and bool(torch.isfinite(emb).all()), "finite embeddings")
+    eval_ms = time_ms(lambda: embed(x))
+    ev = {"batch": SF_EMBED_BATCH, "ms": eval_ms,
+          "clips_per_s": SF_EMBED_BATCH / (eval_ms / 1e3),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    ev.update(bound(SF_EMBED_BATCH * flop["forward"], x.numel() * 4,
+                    "bfloat16", peaks))
+    del x, embed
+    torch.cuda.empty_cache()
+    ckpt = slowfast_checkpoints(model)
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"the SlowFast path launched nn1_cosine "
+          f"{launches} times")
+    emit("slowfast", config="get_cfg() defaults",
+         arch=f"SlowFast-{cfg.SLOWFAST.DEPTH}",
+         alpha=cfg.SLOWFAST.ALPHA, beta_inv=cfg.SLOWFAST.BETA_INV,
+         clip=[t, s, s, 3], anchors=b, views=list(views),
+         clips_per_step=clips, dtype=str(cfg.TPU.COMPUTE_DTYPE),
+         strategy=cfg.DATASET.SAMPLING_STRATEGY, lr=cfg.OPTIM.LR,
+         params=sum(p.numel() for p in model.parameters()),
+         forward_gflop_per_clip=flop["forward"] / 1e9,
+         step_gflop_per_clip=per_clip / 1e9, fp32_card_vs_cpu=vs_cpu,
+         bf16_vs_fp32=vs_fp32, timing=timing, learning=learn, eval=ev,
+         checkpoints=ckpt, nn1_cosine_launches=launches)
+    return timing["clips_per_s"]
+
+
+MOCO_ARCHES = ("info_nce", "uber_nce")
+MOCO_T, MOCO_S = CLS_T, CLS_S  # the classifier phase's clip shape
+MOCO_ANCHORS = 32
+MOCO_FP64_ANCHORS = 4
+MOCO_CLASSES = 8
+MOCO_CLI_CLASSES = 10  # of the synthetic set's 40: 110 train videos
+MOCO_MIN_GRAD_COS = CLS_FP32_MIN_GRAD_COS  # S3D's fp32 step at init
+# the learning check: UberNCE's loss cannot fall below the mean log of
+# each row's positive count (its optimum spreads p over the positives),
+# log(1 + 1024 / 8) = 4.86 here, so the check holds the loss's excess over
+# that floor, at the UCF config's lr 0.1
+MOCO_LEARN_LR = 0.1
+MOCO_LEARN_MAX_EXCESS = 0.9
+
+
+def moco_cfg(arch: str, dtype=None, extra=()):
+    opts = ["MODEL.ARCH", arch, "LOSS.TYPE", "UberNCE",
+            "TRAIN.BATCH_SIZE", MOCO_ANCHORS, "DATA.SAMPLE_DURATION", MOCO_T,
+            "DATA.SAMPLE_SIZE", MOCO_S,
+            "OUTPUT_PATH", os.path.join(OUT, "moco")] + list(extra)
+    if dtype is not None:
+        opts += ["TPU.COMPUTE_DTYPE", dtype]
+    return load_cfg(None, opts)
+
+
+def moco_trainer(cfg, init, dtype=None):
+    """The MoCo encoder from ``init`` on the card (cast to ``dtype``, its
+    key encoder too; the queue stays float32) with its optimizer, its
+    ``moco`` bank (queue seeded) and step."""
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train.driver import \
+        make_train_step
+    from video_similarity_search_tpu_torch.train.state import make_optimizer
+    from video_similarity_search_tpu_torch.train.steps import make_banks
+
+    model = model_selector(cfg)
+    model.load_state_dict(init)
+    model.cuda()
+    banks = make_banks(cfg, 0, model)
+    if dtype is not None:
+        model.to(dtype)
+        banks["moco"].encoder_k.to(dtype)
+    opt, sched = make_optimizer(cfg, model.parameters())
+    step, _ = make_train_step(cfg, model, opt, sched, banks, device="cuda")
+    return model, banks["moco"], step
+
+
+def moco_batch(rng, b, structured=False, dtype=None):
+    """Normalized x1 / x2 views (two clips of each row's class) and their
+    labels, drawn on the card from a seed taken from ``rng`` (a host
+    draw of 2 x 32 clips of 32x128x128 takes ~2 s). ``structured``: each
+    class has its own colour under per-clip noise, as ``class_clips``;
+    otherwise uniform noise."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+
+    labels = rng.integers(0, MOCO_CLASSES, b)
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(2 ** 31)))
+    shape = (b, MOCO_T, MOCO_S, MOCO_S, 3)
+    colors = torch.from_numpy(np.random.default_rng(SEED).integers(
+        30, 226, (MOCO_CLASSES, 3))[labels]).cuda()[:, None, None, None, :]
+    out = {}
+    for k in ("x1", "x2"):
+        if structured:
+            noise = torch.randint(-60, 61, shape, generator=gen, device="cuda")
+            u8 = (colors + noise).clamp(0, 255).to(torch.uint8)
+        else:
+            u8 = torch.randint(0, 256, shape, generator=gen, device="cuda",
+                               dtype=torch.uint8)
+        out[k] = normalize_only(u8, dataset="ucf101")
+        if dtype is not None:
+            out[k] = out[k].to(dtype)
+    out["label"] = torch.from_numpy(labels).cuda()
+    return out
+
+
+def time_moco(arch, dtype, init, rng):
+    """ms of a step (median of TIMED_STEPS after two warm-up steps, host
+    clock around a synchronized step), clips/s (two views a row) and peak
+    GiB; in bf16 (the config's dtype) the device split of the step's
+    ranges too."""
+    import torch
+
+    from video_similarity_search_tpu_torch.train.steps import RANGES
+
+    model, bank, step = moco_trainer(moco_cfg(arch, dtype), init)
+    batch = moco_batch(rng, MOCO_ANCHORS)
+    first = float(step(batch)["loss"])
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(TIMED_STEPS):
+        t0 = time.perf_counter()
+        met = step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = float(np.median(times))
+    check(np.isfinite(first), f"{arch} {dtype}: a finite first loss")
+    out = {"arch": arch, "dtype": dtype, "step_ms": ms, "step_ms_all": times,
+           "clips_per_s": 2 * MOCO_ANCHORS / (ms / 1e3),
+           "peak_mem_gib": peak, "first_loss": first,
+           "last_loss": float(met["loss"]), "queue_ptr": int(bank.queue_ptr)}
+    if dtype == "bfloat16":
+        out["device_split_ms"] = device_split_ms(lambda: step(batch),
+                                                 TIMED_STEPS, RANGES)
+    return out
+
+
+def moco_fp32_vs_fp64(arch, init):
+    """One step at MOCO_FP64_ANCHORS anchors, fp32 (TF32 off) against fp64
+    networks on the card from the same weights, queue and batch (the queue
+    and logits float32 in both, as in the JAX step): the loss, the whole
+    gradient's cosine, the queue, its pointer and labels; and in each run
+    the key parameters' move equal to (1 - m) x the query's update, the
+    momentum update from the updated query parameters."""
+    import torch
+
+    from video_similarity_search_tpu_torch.train import steps
+
+    cfg = moco_cfg(arch, "float32")
+    batch = moco_batch(np.random.default_rng(SEED + 3), MOCO_FP64_ANCHORS)
+    res = {}
+    m = steps.MOCO_M
+
+    def flat(params):
+        return torch.cat([p.detach().double().flatten() for p in params])
+
+    for dtype in (torch.float32, torch.float64):
+        model, bank, step = moco_trainer(cfg, init, dtype)
+        b = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in batch.items()}
+        q0, k0 = flat(model.parameters()), flat(bank.encoder_k.parameters())
+        met = step(b)  # the gradients stay until the next step
+        q1, k1 = flat(model.parameters()), flat(bank.encoder_k.parameters())
+        res[dtype] = {
+            "loss": float(met["loss"]),
+            "grad": torch.cat([p.grad.double().flatten()
+                               for p in model.parameters()]),
+            "key": k1,
+            "momentum_err": float(((k1 - k0) - (1 - m) * (q1 - q0)).abs()
+                                  .max()),
+            "key_scale": max(1.0, float(k0.abs().max())),
+            "bank": {k: v.detach().clone() for k, v in
+                     bank.state_dict().items()
+                     if not k.startswith("encoder_k.")}}
+        del model, bank, step
+        torch.cuda.empty_cache()
+    lo, hi = res[torch.float32], res[torch.float64]
+    out = {"anchors": MOCO_FP64_ANCHORS, "loss_fp32": lo["loss"],
+           "loss_fp64": hi["loss"],
+           "loss_rel_diff": abs(lo["loss"] - hi["loss"]) / abs(hi["loss"]),
+           "grad_cosine": float(torch.nn.functional.cosine_similarity(
+               lo["grad"], hi["grad"], dim=0)),
+           "key_params_max_abs_diff": float((lo["key"] - hi["key"])
+                                            .abs().max()),
+           "momentum_max_abs_err_fp32": lo["momentum_err"],
+           "momentum_max_abs_err_fp64": hi["momentum_err"],
+           "queue_max_abs_diff": float((lo["bank"]["queue"]
+                                        - hi["bank"]["queue"]).abs().max()),
+           "queue_ptr": int(lo["bank"]["queue_ptr"])}
+    exact = [k for k in lo["bank"] if k != "queue"]
+    check(all(torch.equal(lo["bank"][k], hi["bank"][k]) for k in exact)
+          and out["queue_ptr"] == MOCO_FP64_ANCHORS,
+          f"{arch} fp32 vs fp64: the same pointer and labels")
+    # the loss is logsumexp minus the positive logit, both ~1/T = 14 at
+    # init and nearly equal: relative to a loss of ~0.004 their float32
+    # rounding reads as ~1e-4, so small losses are held absolutely
+    check(abs(lo["loss"] - hi["loss"]) <= 1e-4 * max(abs(hi["loss"]), 1.0)
+          and out["grad_cosine"] >= MOCO_MIN_GRAD_COS
+          and out["queue_max_abs_diff"] <= 1e-3,
+          f"{arch} fp32 vs fp64: {out}")
+    check(all(r["momentum_err"] <= 1e-6 * r["key_scale"]
+              for r in (lo, hi)), f"{arch}: the key parameters moved by "
+          f"(1 - m) x the query's update ({lo['momentum_err']}, "
+          f"{hi['momentum_err']})")
+    return out
+
+
+def moco_learning(init):
+    """LEARN_STEPS bf16 uber_nce steps at lr MOCO_LEARN_LR on fresh
+    class-coloured batches (8 classes; every queue entry of a row's class
+    is a positive), after the queue is filled with the key encoder's keys
+    of such batches, so the first loss scores real negatives: the loss's
+    excess over its floor (MOCO_LEARN_MAX_EXCESS) falls."""
+    import torch
+
+    _, bank, step = moco_trainer(moco_cfg("uber_nce", extra=[
+        "OPTIM.LR", MOCO_LEARN_LR]), init)
+    rng = np.random.default_rng(SEED + 4)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        for _ in range(bank.queue.shape[0] // MOCO_ANCHORS):
+            b = moco_batch(rng, MOCO_ANCHORS, structured=True)
+            bank.dequeue_and_enqueue(bank.keys(b["x2"]), b["label"])
+    losses, floors = [], []
+    for _ in range(LEARN_STEPS):
+        b = moco_batch(rng, MOCO_ANCHORS, structured=True)
+        positives = 1 + (bank.queue_labels[None] == b["label"][:, None]).sum(1)
+        floors.append(torch.log(positives.float()).mean())
+        losses.append(step(b)["loss"])
+    losses, floors = np.array([float(v) for v in losses]), np.array(
+        [float(v) for v in floors])
+    excess = float(np.mean(losses[-5:] - floors[-5:])
+                   / np.mean(losses[:5] - floors[:5]))
+    check(bool(np.isfinite(losses).all()) and excess <= MOCO_LEARN_MAX_EXCESS,
+          f"MoCo learning check: the last 5 steps' mean excess loss is "
+          f"{excess:.3f} of the first 5's (<= {MOCO_LEARN_MAX_EXCESS})")
+    return {"arch": "uber_nce", "lr": MOCO_LEARN_LR, "steps": LEARN_STEPS,
+            "first5_mean": float(np.mean(losses[:5])),
+            "last5_mean": float(np.mean(losses[-5:])),
+            "floor_mean": float(floors.mean()), "excess_ratio": excess,
+            "losses": losses.tolist()}
+
+
+def moco_cli(paths):
+    """The training CLI with MODEL.ARCH uber_nce and LOSS.TYPE UberNCE on
+    MOCO_CLI_CLASSES classes of the synthetic set (the UCF config's
+    16x128x128 clips and 32 anchors): one epoch as python -m, then a second
+    resumed from its checkpoint in this process, whose ``moco`` bank (key
+    encoder, queue, pointer, labels) must be the saved one."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.train import steps
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "moco_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ann_val = train_cli_annotations(ann, work, MOCO_CLI_CLASSES)[1]
+    out = os.path.join(work, "out")
+    opts = ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_val,
+            "DATASET.OPTICAL_U_PATH", flow, "MODEL.ARCH", "uber_nce",
+            "LOSS.TYPE", "UberNCE", "OPTIM.LR", str(NCE_CLI_LR)]
+    cli = ["--cfg", UCF_YAML, "--output", out, "--device", "cuda"]
+    stdout, wall = run_cli([sys.executable, "-m",
+                            "video_similarity_search_tpu_torch.cli."
+                            "online_train"] + cli + opts
+                           + ["TRAIN.EPOCHS", "1"], "UberNCE CLI")
+    ckpt = os.path.join(out, "tnet_checkpoints", "uber_nce",
+                        "checkpoint.pth.tar")
+    saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+    check(saved["epoch"] == 1 and set(saved.get("banks", {})) == {"moco"},
+          "the checkpoint holds epoch 1 and the moco bank")
+    seen = {}
+    make_step = steps.make_moco_train_step
+
+    def spy(cfg, model, optimizer, schedule, bank, **kw):
+        seen.update({k: v.detach().cpu().clone()
+                     for k, v in bank.state_dict().items()})
+        return make_step(cfg, model, optimizer, schedule, bank, **kw)
+
+    steps.make_moco_train_step = spy
+    try:
+        res_out, res_wall = run_main(
+            online_train.main, cli + ["--checkpoint_path", out] + opts
+            + ["TRAIN.EPOCHS", "2"], "resumed UberNCE CLI")
+    finally:
+        steps.make_moco_train_step = make_step
+    want = saved["banks"]["moco"]
+    check(seen.keys() == want.keys()
+          and all(torch.equal(seen[k], v) for k, v in want.items()),
+          "the resumed run starts from the saved moco bank, byte-equal")
+    check("WARNING: restore" not in res_out, "a clean resume")
+    with open(os.path.join(out, "tnet_checkpoints",
+                           "train_loss_and_acc.txt")) as f:
+        lines = f.read().splitlines()
+    losses = [float(ln.split()[-1]) for ln in lines]
+    check(len(lines) == 2 and all(np.isfinite(losses)),
+          "two epochs, finite losses")
+    top1 = [float(v) for v in re.findall(r"Top1:(\S+)", stdout + res_out)]
+    rates = [float(m) for m in re.findall(
+        r"Train set: Average loss: \S+ \(([\d.]+) clips/s", stdout + res_out)]
+    return {"wall_s": wall, "resume_wall_s": res_wall, "train_loss": losses,
+            "top1": top1, "loader_fed_anchors_per_s": rates,
+            "queue_labels_filled": int((want["queue_labels"] >= 0).sum()),
+            "bank_restored_byte_equal": True}
+
+
+def phase_moco(paths):
+    """LOSS.TYPE UberNCE with the MoCo S3D encoder (info_nce, uber_nce) at
+    the classifier phase's clips (32 anchors of 32x128x128, two views,
+    LOSS.K 1024): a timed step in bf16 and fp32 for each arch, one fp32
+    step held to fp64 (uber_nce, whose queue carries labels; info_nce
+    shares its forward and update), a learning check, and the CLI for an
+    epoch and a resumed second, each part's seconds beside it."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.ops import fused_knn
+
+    fused_knn.LAUNCHES = 0
+    torch.manual_seed(SEED)
+    init = model_selector(moco_cfg("uber_nce")).state_dict()
+    rng = np.random.default_rng(SEED)
+    sec = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sec[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        return out
+
+    timing = [part(f"time_{a}_{d}", time_moco, a, d, init, rng)
+              for a in MOCO_ARCHES for d in ("bfloat16", "float32")]
+    vs64 = part("fp32_vs_fp64", moco_fp32_vs_fp64, "uber_nce", init)
+    learn = part("learning", moco_learning, init)
+    cli = part("cli", moco_cli, paths)
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"the MoCo path launched nn1_cosine {launches} "
+          "times")
+    emit("moco", network="s3d", anchors=MOCO_ANCHORS,
+         clip=[MOCO_T, MOCO_S, MOCO_S, 3], k=moco_cfg("info_nce").LOSS.K,
+         timing=timing, fp32_vs_fp64=vs64, learning=learn, cli=cli,
+         nn1_cosine_launches=launches, seconds=sec)
+    return {f"{t['arch']} {t['dtype']}": t["step_ms"] for t in timing}
+
+
 def main() -> int:
     try:
         import torch
@@ -2742,6 +3298,8 @@ def main() -> int:
     check(fused_knn.LAUNCHES == 0, "the classifier step launches no 1-NN "
           "kernel")
     run("classify_cli", phase_classify_cli, cls_rates)
+    run("slowfast", phase_slowfast, smi)
+    run("moco", phase_moco, paths)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()),
          notes="the data phase reads 3 epochs of the eval train loader "
                "(5 before the train_step and train_cli phases); train_cli "

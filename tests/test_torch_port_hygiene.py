@@ -1,9 +1,9 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
 no silent fall back to the CPU (the serving, clustering, training,
-contrastive and classification entry points alike), its own copy of the native decoder, and (on a CUDA machine only)
+contrastive, MoCo and classification entry points alike), its own copy of the native decoder, and (on a CUDA machine only)
 the CUDA 1-NN kernel agrees with its plain version, the pinned side-stream
-upload delivers the host batches, and the triplet step on the card equals
-the step on the CPU."""
+upload delivers the host batches, and the triplet and MoCo steps on the
+card equal the steps on the CPU."""
 
 import argparse
 import ast
@@ -71,7 +71,7 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
     from video_similarity_search_tpu_torch.train.driver import (
         iterative_cluster_step, train)
     from video_similarity_search_tpu_torch.train.steps import (
-        make_banks, make_contrastive_train_step)
+        make_banks, make_contrastive_train_step, make_moco_train_step)
     cfg = get_cfg()
     cfg.merge_from_file(os.path.join(ROOT, "configs",
                                      "resnet_ucf_itercluster_flow.yaml"))
@@ -101,6 +101,10 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
              lambda: make_contrastive_train_step(nce_cfg, model, *opt,
                                                  make_banks(nce_cfg, 8)["nce"]),
              lambda: train(argparse.Namespace(), nce_cfg),
+             lambda: make_moco_train_step(moco_cfg, moco, *moco_opt,
+                                          make_banks(moco_cfg, 8,
+                                                     moco)["moco"]),
+             lambda: train(argparse.Namespace(), moco_cfg),
              lambda: validate(model, cfg, []),
              lambda: coclr_classify.main([]),
              lambda: make_classify_train_step(s3d_cfg, classifier, *cls_opt),
@@ -110,6 +114,10 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
     opt = make_optimizer(cfg, model.parameters())
     nce_cfg = cfg.clone()
     nce_cfg.LOSS.TYPE = "contrastive"
+    moco_cfg = cfg.clone()
+    moco_cfg.MODEL.ARCH, moco_cfg.LOSS.TYPE = "uber_nce", "UberNCE"
+    moco = model_selector(moco_cfg)
+    moco_opt = make_optimizer(moco_cfg, moco.parameters())
     s3d_cfg = get_cfg()
     s3d_cfg.MODEL.ARCH = "s3d"
     classifier = LinearClassifier(num_class=5)
@@ -301,3 +309,72 @@ def test_triplet_step_on_the_card_matches_the_cpu():
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
     assert torch.equal(out["cuda"][1], out["cpu"][1])
     assert errs["cpu"] <= 1e-3 and errs["cuda"] <= 1e-2 < errs["cuda_tf32"]
+
+
+@pytest.mark.gpu
+def test_moco_step_on_the_card_matches_the_cpu():
+    """One fp32 UberNCE step (S3D, 4 anchors of 8x32x32, K 8) on the card
+    and on the CPU from the same weights, queue and batch: the loss within
+    1e-4 relative, the pointer and labels the same, the enqueued keys
+    within 1e-3, and the query and key parameters' update no further from
+    an fp64 CPU run's than 3x the CPU's fp32 update (chip_smoke.py's bar:
+    S3D's fp32 update at init is ~1% from fp64 on either device). One
+    step: at random init S3D amplifies the first update's rounding ~1e5
+    fold in the second (tests/test_torch_port_moco.py)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the step runs on the card")
+    from video_similarity_search_tpu_torch.config import get_cfg
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train import (
+        make_banks, make_moco_train_step, make_optimizer)
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "uber_nce", "LOSS.TYPE", "UberNCE",
+                         "LOSS.K", 8, "TPU.COMPUTE_DTYPE", "float32",
+                         "OPTIM.LR", 0.01])
+    torch.manual_seed(0)
+    init = model_selector(cfg).state_dict()
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(0.5 * rng.normal(size=(4, 8, 32, 32, 3))
+                                 .astype(np.float32)) for k in ("x1", "x2")}
+    batch["label"] = torch.tensor([0, 1, 0, 2])
+    out = {}
+    for name, dev, dtype in (("cpu", "cpu", torch.float32),
+                             ("cpu64", "cpu", torch.float64),
+                             ("cuda", "cuda", torch.float32)):
+        model = model_selector(cfg)
+        model.load_state_dict(init)
+        bank = make_banks(cfg, 0, model)["moco"]
+        model.to(dtype)
+        bank.encoder_k.to(dtype)
+        step = make_moco_train_step(cfg, model,
+                                    *make_optimizer(cfg, model.parameters()),
+                                    bank, uber=True, device=dev)
+        loss = float(step({k: v.to(dev, dtype) if v.is_floating_point()
+                           else v.to(dev) for k, v in batch.items()})["loss"])
+        sd = {k: v.detach().cpu().double()
+              for k, v in model.state_dict().items()}
+        sd.update({"bank." + k: v.detach().cpu().double()
+                   for k, v in bank.state_dict().items()})
+        out[name] = (loss, sd)
+
+    def update_err(name):
+        num = den = 0.0
+        for k, ref in out["cpu64"][1].items():
+            if k.startswith("bank.queue") or k.endswith((
+                    "running_mean", "running_var", "num_batches_tracked")):
+                continue
+            p0 = init[k] if k in init else init[k.replace(
+                "bank.encoder_k.", "encoder_q.")]
+            u, r = out[name][1][k] - p0.double(), ref - p0.double()
+            num += float(((u - r) ** 2).sum())
+            den += float((r ** 2).sum())
+        return (num / den) ** 0.5
+
+    errs = {k: update_err(k) for k in ("cpu", "cuda")}
+    print("fp32 MoCo update, relative distance from fp64:", errs)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for k in ("bank.queue_ptr", "bank.queue_labels"):
+        assert torch.equal(out["cuda"][1][k], out["cpu"][1][k]), k
+    assert float((out["cuda"][1]["bank.queue"]
+                  - out["cpu"][1]["bank.queue"]).abs().max()) <= 1e-3
+    assert errs["cpu"] <= 0.05 and errs["cuda"] <= 3 * errs["cpu"] + 1e-5

@@ -21,7 +21,8 @@ package's, on the CPU in float32, with the JAX weights carried across by
   ``state_dict`` back to the same trees, the reference's ``blockN.M``
   aliases load through ``load_torch_checkpoint``, ``merge_pretrained``
   loads by name and shape, and the registry builds ``s3d`` / ``r3d`` and
-  raises for the archs still to port.
+  the last archs to be ported (``slowfast``, ``info_nce``, ``uber_nce``)
+  with the JAX registry's shapes.
 """
 
 import functools
@@ -342,10 +343,35 @@ def test_merge_pretrained_counts(capsys):
                                        ("info_nce", "item 16"),
                                        ("uber_nce", "item 16")])
 def test_archs_still_to_port_raise(arch, item):
-    cfg = t_get_cfg()
-    cfg.MODEL.ARCH = arch
-    with pytest.raises(NotImplementedError, match=item):
-        t_selector(cfg)
+    """The archs that raised until their ROADMAP item was ported now build
+    from the registry, at the config's defaults, with the parameter and
+    statistic shapes of the JAX registry's module, and load its weights
+    carried across (SlowFast-50 at width 64, the MoCo S3D encoder)."""
+    from video_similarity_search_tpu.models.slowfast import \
+        multipathway_input
+    from video_similarity_search_tpu_torch.train.checkpoint import (
+        flax_moco_encoder_to_torch, flax_slowfast_to_torch)
+    jcfg, tcfg = j_get_cfg(), t_get_cfg()
+    for cfg in (jcfg, tcfg):
+        cfg.MODEL.ARCH = arch
+    jm, tm = j_selector(jcfg), t_selector(tcfg)
+    x = jnp.zeros((1,) + CLIP)
+    if arch == "slowfast":
+        x = multipathway_input(x, jcfg.SLOWFAST.ALPHA)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.key(0), x,
+                                            train=False))
+    to_torch = (flax_slowfast_to_torch if arch == "slowfast"
+                else flax_moco_encoder_to_torch)
+    rng = np.random.default_rng(len(arch))
+    params, stats = (jax.tree.map(
+        lambda s: rng.normal(size=s.shape).astype(np.float32), shapes[k])
+        for k in ("params", "batch_stats"))
+    sd = to_torch(params, stats)
+    own = tm.state_dict()
+    assert set(sd) == set(own), item
+    tm.load_state_dict(sd)
+    for k, v in sd.items():
+        assert torch.equal(tm.state_dict()[k], v), k
 
 
 def test_s3d_key_names_are_the_references():

@@ -318,9 +318,8 @@ def test_cli_refuses_what_is_not_ported(setup, tmp_path):
             "cpu"] + setup["extra"]
     with pytest.raises(NotImplementedError, match="item 10"):
         t_cli.main(base[:-4] + ["--num_shards", "2"] + base[-4:])
-    # LOSS.TYPE contrastive is ported (tests/test_torch_port_contrastive.py)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        t_cli.main(base + ["LOSS.TYPE", "UberNCE"])
+    # LOSS.TYPE contrastive and UberNCE are ported
+    # (tests/test_torch_port_{contrastive,moco}.py)
 
 
 def test_metrics_sink_meter_and_step_profiler(tmp_path):

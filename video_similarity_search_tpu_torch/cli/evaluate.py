@@ -5,7 +5,8 @@
         --cfg configs/resnet_ucf_itercluster_flow.yaml \\
         --checkpoint_path <ckpt.pth.tar> --output <dir> [--device cuda]
 
-Builds the encoder, loads a reference-format torch checkpoint, embeds the
+Builds the encoder, loads a reference-format torch checkpoint (or a
+pyslowfast Caffe2 ``.pkl``), embeds the
 train and test splits (test = sliding-window averaged, or one center clip
 with ``--crop center``), and reports top-1/5/10/20 cosine retrieval. It
 writes ``train_embeddings.pkl``, ``test_embeddings.pkl`` and
@@ -73,8 +74,10 @@ def main(argv: Optional[List[str]] = None) -> Dict[int, float]:
     start = time.time()
     model = model_selector(cfg)
     if args.checkpoint_path:
-        payload = load_torch_checkpoint(args.checkpoint_path)
-        load_encoder_state(model, payload["torch_state_dict"])
+        payload = load_torch_checkpoint(args.checkpoint_path)  # or a .pkl
+        load_encoder_state(model, payload["torch_state_dict"],
+                           inflate_temporal=bool(
+                               cfg.SLOWFAST.CHECKPOINT_INFLATE))
 
     train_loader, _ = build_data_loader(
         "train", cfg, triplets=False, req_train_shuffle=False,

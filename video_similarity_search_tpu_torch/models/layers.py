@@ -10,6 +10,7 @@ cuDNN prefers for 3-D convolutions on the card, so no copy is made.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -30,16 +31,18 @@ def _triple(v: IntOr3) -> Tuple[int, int, int]:
 class Conv3d(nn.Conv3d):
     """3-D convolution with torch-style symmetric ``k//2`` padding by
     default (JAX ``layers.Conv3d``); He-normal fan-out init like the flax
-    ``variance_scaling(2.0, "fan_out", "normal")``, a bias (when asked
-    for) at zero like flax's."""
+    ``variance_scaling(2.0, "fan_out", "normal")`` (untruncated; for a
+    grouped convolution both count the fan-out as Cout x the window), a
+    bias (when asked for) at zero like flax's."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: IntOr3 = 3, stride: IntOr3 = 1,
-                 padding: IntOr3 = None, bias: bool = False):
+                 padding: IntOr3 = None, bias: bool = False,
+                 groups: int = 1, dilation: IntOr3 = 1):
         k = _triple(kernel_size)
         pad = tuple(d // 2 for d in k) if padding is None else _triple(padding)
         super().__init__(in_channels, out_channels, k, _triple(stride), pad,
-                         bias=bias)
+                         dilation=_triple(dilation), groups=groups, bias=bias)
         nn.init.kaiming_normal_(self.weight, mode="fan_out",
                                 nonlinearity="relu")
         if bias:
@@ -89,10 +92,15 @@ class _FlaxRunningVar:
 
 class BatchNorm(_FlaxRunningVar, nn.BatchNorm3d):
     """BatchNorm over (B, C, T, H, W) with eps 1e-5 and torch momentum 0.1
-    (flax momentum 0.9); train mode keeps flax's running variance."""
+    (flax momentum 0.9); train mode keeps flax's running variance.
+    ``zero_scale``: the scale starts at zero (flax ``scale_init=zeros``,
+    SlowFast's last BatchNorm of a bottleneck and of a Nonlocal block), so
+    the residual branch starts as nothing."""
 
-    def __init__(self, num_features: int):
+    def __init__(self, num_features: int, zero_scale: bool = False):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+        if zero_scale:
+            nn.init.zeros_(self.weight)
 
 
 class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
@@ -100,6 +108,76 @@ class BatchNorm1d(_FlaxRunningVar, nn.BatchNorm1d):
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-5, momentum=0.1)
+
+
+class SubBatchNorm(nn.Module):
+    """Split-batch BatchNorm over (B, C, T, H, W) (the JAX package's
+    ``layers.SubBatchNorm``; reference SubBatchNorm3d,
+    models/slowfast/slowfast/models/batchnorm_helper.py:41-120). In train
+    mode the batch is cut into ``num_splits`` contiguous groups (items
+    ``[g B/S, (g + 1) B/S)``), each normalized by its own mean and biased
+    variance; the running statistics take one flax-momentum update with
+    the mean of the group means and the mean of the group variances plus
+    the spread of the group means. One affine ``weight`` / ``bias`` serves
+    every group; eval mode normalizes by the running statistics.
+    Statistics are taken in float32 (float64 for a float64 input)."""
+
+    frozen_stats = False  # as ``_FlaxRunningVar.frozen_stats``
+
+    def __init__(self, num_features: int, num_splits: int = 1,
+                 eps: float = 1e-5, momentum: float = 0.1):
+        super().__init__()
+        self.num_splits, self.eps, self.momentum = num_splits, eps, momentum
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        shape = (1, -1, 1, 1, 1)
+        if not self.training:
+            mean = self.running_mean.to(xf.dtype).view(shape)
+            var = self.running_var.to(xf.dtype).view(shape)
+        else:
+            b, s = x.shape[0], self.num_splits
+            assert b % s == 0, f"batch {b} % num_splits {s} != 0"
+            g = xf.reshape((s, b // s) + tuple(x.shape[1:]))
+            mean = g.mean(dim=(1, 3, 4, 5))  # (splits, C)
+            var = (g - mean[:, None, :, None, None, None]).square().mean(
+                dim=(1, 3, 4, 5))
+            if not self.frozen_stats:
+                with torch.no_grad():
+                    agg_mean = mean.mean(0)
+                    agg_var = var.mean(0) + (mean - agg_mean).square().mean(0)
+                    m = self.momentum
+                    self.running_mean.copy_((1 - m) * self.running_mean
+                                            + m * agg_mean)
+                    self.running_var.copy_((1 - m) * self.running_var
+                                           + m * agg_var)
+            mean = mean.repeat_interleave(b // s, dim=0)[..., None, None, None]
+            var = var.repeat_interleave(b // s, dim=0)[..., None, None, None]
+        y = (xf - mean) * torch.rsqrt(var + self.eps)
+        y = y * self.weight.to(xf.dtype).view(shape) + \
+            self.bias.to(xf.dtype).view(shape)
+        return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """The BatchNorms of ``module`` normalize by the batch as in train mode
+    but keep their running statistics (``_FlaxRunningVar.frozen_stats``):
+    remat's recomputation (ROADMAP hazard H7) and the MoCo key encoder's
+    forward, whose statistics the JAX step throws away (H9)."""
+    norms = [m for m in module.modules()
+             if isinstance(m, (_FlaxRunningVar, SubBatchNorm))]
+    for m in norms:
+        m.frozen_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.frozen_stats = False
 
 
 def max_pool3d(x: torch.Tensor, kernel: int = 3, stride: int = 2,

@@ -1,6 +1,7 @@
 """Model registry: cfg -> torch module (port of the JAX package's
-``models/registry.py``: the ``3dresnet``, ``s3d`` and ``r3d`` branches;
-``slowfast``, ``info_nce`` and ``uber_nce`` raise ``NotImplementedError``)."""
+``models/registry.py``): ``3dresnet``, ``slowfast`` (with the SLOWFAST.*
+sub-config), ``s3d``, ``r3d``, and the MoCo query encoder for
+``info_nce`` / ``uber_nce``."""
 
 from __future__ import annotations
 
@@ -9,14 +10,11 @@ from typing import Optional
 import torch
 
 from .heads import R3DEmbedder, S3DEmbedder
+from .moco import MoCoEncoder
 from .resnet3d import generate_model
+from .slowfast import SlowFast
 
 ARCHES = ("3dresnet", "slowfast", "info_nce", "uber_nce", "s3d", "r3d")
-
-# arch -> the ROADMAP item that ports it
-_TODO = {"slowfast": "ROADMAP.md, queue 1, item 17 (SlowFast)",
-         "info_nce": "ROADMAP.md, queue 1, item 16 (MoCo / InfoNCE)",
-         "uber_nce": "ROADMAP.md, queue 1, item 16 (MoCo / UberNCE)"}
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -52,16 +50,31 @@ def model_selector(cfg, projection_head: bool = True, classifier: bool = False,
                    dropout: Optional[float] = None,
                    num_classes: int = 101) -> torch.nn.Module:
     """Build the encoder named by ``cfg.MODEL.ARCH`` on the CPU; the caller
-    moves it with ``.to(device)``."""
+    moves it with ``.to(device)``. SlowFast takes the [slow, fast] list
+    of ``slowfast.multipathway_input``, which the steps build."""
     arch = cfg.MODEL.ARCH
     assert arch in ARCHES, f"unknown arch {arch!r}"
-    if arch in _TODO:
-        raise NotImplementedError(f"arch {arch!r}: not ported yet "
-                                  f"({_TODO[arch]})")
     if arch == "s3d":
         return S3DEmbedder(dim=128)
     if arch == "r3d":
         return R3DEmbedder(dim=128)
+    if arch in ("info_nce", "uber_nce"):
+        # the query encoder; the key encoder and queue are the "moco" bank
+        return MoCoEncoder(network="s3d", dim=128)
+    if arch == "slowfast":
+        sf = cfg.SLOWFAST
+        n_ch = cfg.DATA.INPUT_CHANNEL_NUM
+        if sf.FAST_MASK:
+            assert n_ch == 4, "FAST_MASK expects a 4th mask channel"
+        return SlowFast(
+            depth=sf.DEPTH, alpha=sf.ALPHA, beta_inv=sf.BETA_INV,
+            fusion_conv_channel_ratio=sf.FUSION_CONV_CHANNEL_RATIO,
+            fusion_kernel_sz=sf.FUSION_KERNEL_SZ,
+            input_channels=(3, 3) if sf.FAST_MASK else (n_ch, n_ch),
+            projection_head=projection_head and not classifier,
+            projection2_out=sf.OUT_DIM, classifier=classifier,
+            num_classes=num_classes if classifier else sf.NUM_CLASSES,
+            dropout_rate=sf.DROPOUT_RATE if dropout is None else dropout)
     return generate_model(
         model_depth=cfg.RESNET.MODEL_DEPTH,
         hidden_layer=cfg.RESNET.HIDDEN_LAYER,

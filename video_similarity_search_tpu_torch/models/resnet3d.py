@@ -44,7 +44,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .heads import Dropout
-from .layers import (BatchNorm, Conv3d, ProjectionHead, _FlaxRunningVar,
+from .layers import (BatchNorm, Conv3d, ProjectionHead, frozen_stats,
                      global_avg_pool, max_pool3d)
 
 
@@ -197,23 +197,10 @@ class SpatioTemporalAttention(nn.Module):
         return x * torch.sigmoid(self.conv3d_2(self.conv3d_1(m)))
 
 
-@contextlib.contextmanager
-def _frozen_stats(block: nn.Module):
-    """The BatchNorms of ``block`` keep their running statistics."""
-    norms = [m for m in block.modules() if isinstance(m, _FlaxRunningVar)]
-    for m in norms:
-        m.frozen_stats = True
-    try:
-        yield
-    finally:
-        for m in norms:
-            m.frozen_stats = False
-
-
 def _remat_contexts(block: nn.Module):
     """``checkpoint``'s (forward, recompute) contexts: the recomputation
     runs with the block's running statistics frozen."""
-    return contextlib.nullcontext(), _frozen_stats(block)
+    return contextlib.nullcontext(), frozen_stats(block)
 
 
 class ResNet3D(nn.Module):

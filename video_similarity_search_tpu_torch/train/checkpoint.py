@@ -1,18 +1,24 @@
 """Weights carried across from the JAX package, and reference checkpoints.
 
-``flax_resnet3d_to_torch``, ``flax_s3d_to_torch``, ``flax_r3d_to_torch``
-and ``flax_linear_classifier_to_torch`` are the inverses of the JAX
-package's ``torch_resnet3d_to_flax``, ``torch_s3d_to_flax``,
-``torch_r3d_to_flax`` and ``torch_linear_classifier_to_flax``
-(``train/checkpoint.py``): they take the flax ``params`` / ``batch_stats``
-trees (as numpy arrays) and return a state_dict with the reference's torch
-keys, which the port's modules load with ``load_state_dict``.
+``flax_resnet3d_to_torch``, ``flax_s3d_to_torch``, ``flax_r3d_to_torch``,
+``flax_linear_classifier_to_torch``, ``flax_slowfast_to_torch`` and
+``flax_moco_encoder_to_torch`` are the inverses of the JAX package's
+``torch_resnet3d_to_flax``, ``torch_s3d_to_flax``, ``torch_r3d_to_flax``,
+``torch_linear_classifier_to_flax``, ``torch_slowfast_to_flax`` and
+``torch_moco_encoder_to_flax`` (``train/checkpoint.py``): they take the
+flax ``params`` / ``batch_stats`` trees (as numpy arrays) and return a
+state_dict with the reference's torch keys, which the port's modules load
+with ``load_state_dict``.
 
 ``load_torch_checkpoint`` reads a reference ``.pth.tar`` (the JAX
 package's ``train/checkpoint.py:223-241``, S3D's block aliases mapped to
-the direct names); ``load_encoder_state`` puts it into a port encoder,
-whose parameters carry the same names, and ``merge_pretrained`` loads it
-partially, as the JAX package's ``merge_pretrained`` does.
+the direct names) and ``load_caffe2_checkpoint`` a pyslowfast Caffe2
+``.pkl`` (its blob names mapped to pyslowfast's torch names);
+``load_encoder_state`` puts either into a port encoder, whose parameters
+carry the same names, and ``merge_pretrained`` loads it partially, as the
+JAX package's ``merge_pretrained`` does. Both normalize a Sub-BN state
+dict (``sub_to_normal_bn_sd``) and, with ``inflate_temporal``, inflate a
+2-D kernel to the model's temporal size.
 
 ``save_checkpoint`` / ``restore_train_state`` / ``resolve_checkpoint`` are
 the training run's own checkpoints (the JAX package's
@@ -26,6 +32,7 @@ optimizer's and the learning-rate schedule's state.
 from __future__ import annotations
 
 import os
+import pickle
 import re
 import shutil
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
@@ -183,13 +190,14 @@ def _r3d_name(mods: List[str]) -> str:
 
 
 def _embedder_name(backbone: Callable[[List[str]], str],
-                   heads: Mapping[str, str]) -> Callable[[List[str]], str]:
+                   heads: Mapping[str, str],
+                   prefix: str = "") -> Callable[[List[str]], str]:
     """The embedders' ``nn.Sequential`` names: the backbone at ``0.``, each
-    projection at its index in ``heads``."""
+    projection at its index in ``heads``, all behind ``prefix``."""
     def name(mods: List[str]) -> str:
         if mods[0] == "backbone":
-            return "0." + backbone(mods[1:])
-        return heads[mods[0]]
+            return prefix + "0." + backbone(mods[1:])
+        return prefix + heads[mods[0]]
     return name
 
 
@@ -206,6 +214,52 @@ def flax_s3d_to_torch(params: Mapping, batch_stats: Mapping
     for idx in ("2", "4"):  # Dense (in, out) -> Conv3d (out, in, 1, 1, 1)
         sd[f"{idx}.weight"] = sd[f"{idx}.weight"][:, :, None, None, None]
     return sd
+
+
+def flax_moco_encoder_to_torch(params: Mapping, batch_stats: Mapping,
+                               prefix: str = "encoder_q"
+                               ) -> Dict[str, torch.Tensor]:
+    """flax ``MoCoEncoder`` trees -> the port's ``MoCoEncoder`` state_dict
+    (``encoder_q.0.*`` S3D, the 1x1x1 projections ``encoder_q.2.*`` /
+    ``encoder_q.4.*``); ``prefix="encoder_k"`` names them for the bank's
+    key encoder."""
+    sd = _flax_to_torch(params, batch_stats, _embedder_name(
+        _s3d_name, {"proj_conv1": "2", "proj_conv2": "4"}, prefix + "."))
+    for idx in ("2", "4"):  # Dense (in, out) -> Conv3d (out, in, 1, 1, 1)
+        k = f"{prefix}.{idx}.weight"
+        sd[k] = sd[k][:, :, None, None, None]
+    return sd
+
+
+_SF_STAGE_RE = re.compile(r"^s(\d)_pathway(\d)(_stem)?$")
+_SF_NONLOCAL = {"theta": "conv_theta", "phi": "conv_phi", "g": "conv_g",
+                "out_conv": "conv_out"}
+
+
+def _slowfast_name(mods: List[str]) -> str:
+    """flax SlowFast path -> pyslowfast's torch name: ``s2_pathway1`` /
+    ``res0`` is ``s2.pathway1_res0``, ``s1_pathway0_stem`` is
+    ``s1.pathway0_stem``, a Nonlocal block's ``theta`` ... ``out_conv``
+    are ``conv_theta`` ... ``conv_out``, ``head_projection`` is
+    ``head.projection``."""
+    m = _SF_STAGE_RE.match(mods[0])
+    if m is None:
+        return {"head_projection": "head.projection"}.get(
+            mods[0], ".".join(mods))
+    head = f"s{m.group(1)}.pathway{m.group(2)}"
+    if m.group(3):
+        return ".".join([head + "_stem"] + mods[1:])
+    rest = mods[2:]
+    if mods[1].startswith("nonlocal"):
+        rest = [_SF_NONLOCAL.get(r, r) for r in rest]
+    return ".".join([f"{head}_{mods[1]}"] + rest)
+
+
+def flax_slowfast_to_torch(params: Mapping, batch_stats: Mapping
+                           ) -> Dict[str, torch.Tensor]:
+    """flax ``SlowFast`` / ``SinglePathwayResNet`` trees -> the port's
+    state_dict (pyslowfast's names, every BatchNorm statistic with it)."""
+    return _flax_to_torch(params, batch_stats, _slowfast_name)
 
 
 def flax_r3d_to_torch(params: Mapping, batch_stats: Mapping
@@ -262,9 +316,12 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     "best_prec1"}, on the CPU. Strips the DDP ``module.`` prefix
     (reference model_utils.py:184), maps a MoCo query encoder's
     ``encoder_q.0.`` to ``backbone.`` (coclr_classify.py:244) and S3D's
-    ``blockN.M`` aliases to the direct block names. A directory (an orbax
+    ``blockN.M`` aliases to the direct block names. A ``.pkl`` is a Caffe2
+    checkpoint (``load_caffe2_checkpoint``). A directory (an orbax
     checkpoint of the JAX package) raises: it cannot be read without JAX.
     The file is unpickled: load trusted checkpoints only."""
+    if path.endswith(".pkl"):
+        return load_caffe2_checkpoint(path)
     if os.path.isdir(path):
         raise ValueError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
@@ -287,6 +344,148 @@ def load_torch_checkpoint(path: str) -> Dict[str, Any]:
     }
 
 
+# --------------------------------------------------------------------------
+# Caffe2 / Sub-BN / 2-D inflation import (the JAX package's
+# train/checkpoint.py:665-862; reference
+# models/slowfast/slowfast/utils/checkpoint.py:107-389 and
+# c2_model_loading.py)
+
+# Caffe2 blob name -> pyslowfast torch name, applied in order (the JAX
+# package's _C2_NAME_RULES, reference c2_model_loading.py:9-112).
+_C2_NAME_RULES = [
+    # nonlocal: 'nonlocal_conv3_1_theta_w' -> 's3.pathway0_nonlocal1.conv_theta.weight'
+    (r"^nonlocal_conv([0-9]+)_([0-9]+)_(.*)", r"s\1.pathway0_nonlocal\2_\3"),
+    (r"^(.*)_nonlocal([0-9]+)_(theta|g|phi|out)(.*)",
+     r"\1_nonlocal\2.conv_\3\4"),
+    (r"^(.*)_nonlocal([0-9]+)_(bn)_(.*)", r"\1_nonlocal\2.\3.\4"),
+    # fast->slow fusion: 't_pool1_subsample*' / 't_resN_i_branch2c_bn_subsample*'
+    (r"^t_pool1_subsample_bn_(.*)", r"s1_fuse.bn.\1"),
+    (r"^t_pool1_subsample_(.*)", r"s1_fuse.conv_f2s.\1"),
+    (r"^t_res([0-9]+)_([0-9]+)_branch2c_bn_subsample_bn_(.*)",
+     r"s\1_fuse.bn.\3"),
+    (r"^t_res([0-9]+)_([0-9]+)_branch2c_bn_subsample_(.*)",
+     r"s\1_fuse.conv_f2s.\3"),
+    # slow pathway residual blocks + stem
+    (r"^res([0-9]+)_([0-9]+)_branch([0-9]+)([a-z])_(.*)",
+     r"s\1.pathway0_res\2.branch\3.\4_\5"),
+    (r"^res_conv1_bn_(.*)", r"s1.pathway0_stem.bn.\1"),
+    (r"^conv1_(.*)", r"s1.pathway0_stem.conv.\1"),
+    (r"^res([0-9]+)_([0-9]+)_branch([0-9]+)_(.*)",
+     r"s\1.pathway0_res\2.branch\3_\4"),
+    (r"^res_conv1_(.*)", r"s1.pathway0_stem.conv.\1"),
+    # fast pathway ('t_' prefix)
+    (r"^t_res([0-9]+)_([0-9]+)_branch([0-9]+)([a-z])_(.*)",
+     r"s\1.pathway1_res\2.branch\3.\4_\5"),
+    (r"^t_res_conv1_bn_(.*)", r"s1.pathway1_stem.bn.\1"),
+    (r"^t_conv1_(.*)", r"s1.pathway1_stem.conv.\1"),
+    (r"^t_res([0-9]+)_([0-9]+)_branch([0-9]+)_(.*)",
+     r"s\1.pathway1_res\2.branch\3_\4"),
+    (r"^t_res_conv1_(.*)", r"s1.pathway1_stem.conv.\1"),
+    # classifier head + parameter-suffix normalization
+    (r"pred_(.*)", r"head.projection.\1"),
+    (r"(.*)bn.b\Z", r"\1bn.bias"),
+    (r"(.*)bn.s\Z", r"\1bn.weight"),
+    (r"(.*)bn.rm\Z", r"\1bn.running_mean"),
+    (r"(.*)bn.riv\Z", r"\1bn.running_var"),
+    (r"(.*)[\._]b\Z", r"\1.bias"),
+    (r"(.*)[\._]w\Z", r"\1.weight"),
+]
+
+
+def caffe2_name_to_torch(name: str) -> str:
+    """Apply the Caffe2 -> pyslowfast naming rules in order (reference
+    get_name_convert_func, c2_model_loading.py:9-112)."""
+    for src, dst in _C2_NAME_RULES:
+        name = re.sub(src, dst, name)
+    return name
+
+
+def _is_c2_solver_blob(key: str) -> bool:
+    """Caffe2 solver / bookkeeping blobs, not model weights, matched as
+    name segments (a weight blob whose name merely contains 'lr' is kept),
+    as the JAX package matches them."""
+    return (key == "lr" or key.endswith("_lr")
+            or key == "momentum" or key.endswith("_momentum")
+            or key == "model_iter" or key.endswith("_model_iter")
+            or key.startswith("__"))
+
+
+def caffe2_blobs_to_torch_sd(blobs: Mapping[str, Any],
+                             verbose: bool = True) -> Dict[str, torch.Tensor]:
+    """{Caffe2 blob name: array} -> a pyslowfast state_dict of CPU tensors
+    (reference slowfast/utils/checkpoint.py:206-263). Caffe2 conv blobs
+    share torch's (Cout, Cin, kT, kH, kW) layout, so they load as they
+    are; solver blobs are skipped."""
+    sd, skipped = {}, []
+    for key, blob in blobs.items():
+        if _is_c2_solver_blob(key):
+            skipped.append(key)
+            continue
+        sd[caffe2_name_to_torch(key)] = torch.from_numpy(
+            np.array(blob, copy=True))
+    if skipped and verbose:
+        print(f"caffe2 import: skipped {len(skipped)} solver/bookkeeping "
+              f"blobs (first: {skipped[0]})")
+    return sd
+
+
+def load_caffe2_checkpoint(path: str) -> Dict[str, Any]:
+    """A Caffe2 pickle ``{"blobs": {...}}`` (the public pretrained SlowFast
+    distribution format) -> ``{"torch_state_dict", "epoch": 0,
+    "best_prec1": 0.0}``, as ``load_torch_checkpoint`` returns. Read with
+    ``encoding="latin1"`` (Python 2 pickles); unpickled: trusted files
+    only."""
+    with open(path, "rb") as f:
+        ckpt = pickle.load(f, encoding="latin1")
+    blobs = ckpt["blobs"] if isinstance(ckpt, dict) and "blobs" in ckpt \
+        else ckpt
+    return {"torch_state_dict": caffe2_blobs_to_torch_sd(blobs),
+            "epoch": 0, "best_prec1": 0.0}
+
+
+def sub_to_normal_bn_sd(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A Sub-BN state_dict with plain-BN keys (reference sub_to_normal_bn,
+    slowfast/utils/checkpoint.py:290-329): ``bn.bn.*`` running statistics
+    become ``bn.*``, ``bn.split_bn.*`` and the wrapper's duplicate affine
+    go, (C,1,1,1) affines become (C,). Leaves a plain state_dict as it
+    is; numpy arrays or tensors."""
+    out = {}
+    for key, v in sd.items():
+        if ".split_bn." in key:
+            continue
+        if key.endswith(("bn.bn.running_mean", "bn.bn.running_var",
+                         "bn.bn.num_batches_tracked")):
+            key = key.replace("bn.bn.", "bn.")
+        elif "bn.bn." in key:
+            continue  # duplicate affine copy held by the wrapper
+        if key.endswith(("bn.weight", "bn.bias")) and np.ndim(v) == 4:
+            v = v[:, 0, 0, 0]
+        out[key] = v
+    return out
+
+
+def inflate_kernel(own: torch.Tensor, v: torch.Tensor,
+                   inflate_temporal: bool) -> torch.Tensor:
+    """``v`` shaped for ``own``, a (Cout, Cin, kT, kH, kW) convolution
+    kernel, where it can be: a 2-D (Cout, Cin, kH, kW) kernel is one of
+    temporal size 1 (the JAX ``_conv_t``); with ``inflate_temporal`` a
+    kernel of temporal size 1 is tiled kT times along dimension 2 and
+    divided by kT (the JAX ``merge_pretrained(inflate_temporal=True)``;
+    reference inflate_weight, slowfast/utils/checkpoint.py:139-175), so a
+    temporally constant input gives the 2-D network's activations. Any
+    other ``v`` comes back as it is."""
+    if own.ndim != 5 or v.ndim not in (4, 5):
+        return v
+    if v.ndim == 4:
+        v = v[:, :, None]
+    kt = own.shape[2]
+    if (inflate_temporal and v.shape[2] == 1 and kt > 1
+            and v.shape[:2] == own.shape[:2]
+            and v.shape[3:] == own.shape[3:]):
+        v = v.repeat(1, 1, kt, 1, 1) / kt
+    return v
+
+
 _HEAD_PREFIXES = ("fc1.", "bn_proj.", "fc2.")
 
 
@@ -298,25 +497,39 @@ def _is_s2d_for(own: torch.Tensor, v: torch.Tensor) -> bool:
             and own.shape[1] == 4 * v.shape[1])
 
 
+def _own_name(k: str, own: Mapping[str, torch.Tensor]) -> str:
+    """A checkpoint key's name in ``own``: a ``backbone.`` prefix (the
+    remapped MoCo ``encoder_q.0.``) is dropped where ``own`` has no such
+    name, or read as ``encoder_q.0.`` where ``own`` is a MoCo encoder."""
+    if k in own or not k.startswith("backbone."):
+        return k
+    rest = k[len("backbone."):]
+    return "encoder_q.0." + rest if "encoder_q.0." + rest in own else rest
+
+
 def load_encoder_state(model: torch.nn.Module,
                        state_dict: Mapping[str, torch.Tensor],
-                       verbose: bool = True) -> Dict[str, list]:
-    """Load every tensor of ``state_dict`` whose name (a leading
-    ``backbone.`` dropped where ``model`` has no such name) and shape
-    match a tensor of ``model``, as the JAX package's partial load does
-    (``merge_pretrained``); a 7x7 ``conv1.weight`` offered to a
-    space-to-depth stem is transformed to it (``conv1_kernel_to_s2d``). Prints what it skipped and what it kept at
-    init; raises ``KeyError`` when a backbone weight or statistic (anything
-    outside the projection head but the ``num_batches_tracked`` counters)
-    gets no value. -> the names loaded, skipped and missing."""
+                       verbose: bool = True,
+                       inflate_temporal: bool = False) -> Dict[str, list]:
+    """Load every tensor of ``state_dict`` whose name (``_own_name``) and
+    shape match a tensor of ``model``, as the JAX package's partial load
+    does (``merge_pretrained``): a Sub-BN state_dict is normalized first
+    (``sub_to_normal_bn_sd``), a 7x7 ``conv1.weight`` offered to a
+    space-to-depth stem is transformed to it (``conv1_kernel_to_s2d``), a
+    2-D kernel is one of temporal size 1 and, with ``inflate_temporal``
+    (``SLOWFAST.CHECKPOINT_INFLATE``), such a kernel is inflated to the
+    model's (``inflate_kernel``). Prints what it skipped and what it kept
+    at init; raises ``KeyError`` when a backbone weight or statistic
+    (anything outside the projection head but the ``num_batches_tracked``
+    counters) gets no value. -> the names loaded, skipped and missing."""
     own = model.state_dict()
     loaded, skipped = {}, []
-    for k, v in state_dict.items():
-        name = k
-        if k not in own and k.startswith("backbone."):
-            name = k[len("backbone."):]
+    for k, v in sub_to_normal_bn_sd(state_dict).items():
+        name = _own_name(k, own)
         if name == "conv1.weight" and name in own and _is_s2d_for(own[name], v):
             v = conv1_kernel_to_s2d(v)
+        if name in own:
+            v = inflate_kernel(own[name], v, inflate_temporal)
         if name in own and tuple(own[name].shape) == tuple(v.shape):
             loaded[name] = v.to(own[name].dtype)
         else:
@@ -337,18 +550,31 @@ def load_encoder_state(model: torch.nn.Module,
 
 def merge_pretrained(model: torch.nn.Module,
                      state_dict: Mapping[str, torch.Tensor],
-                     verbose: bool = True) -> Tuple[int, int]:
+                     verbose: bool = True,
+                     inflate_temporal: bool = False) -> Tuple[int, int]:
     """'neq' partial load (the JAX package's ``merge_pretrained``; reference
     coclr_utils/utils.py:93-118): every tensor of ``model`` whose name and
-    shape match one of ``state_dict`` takes its value, the rest keep their
-    init. Prints and returns (matched, kept at init)."""
+    shape match one of ``state_dict`` (a Sub-BN one normalized, a 2-D
+    kernel read as one of temporal size 1) takes its value, the rest keep
+    their init; ``inflate_temporal`` inflates a kernel of temporal size 1
+    to the model's (``inflate_kernel``). Prints and returns (matched and
+    inflated, kept at init)."""
     own = model.state_dict()
-    take = {k: v.to(own[k].dtype) for k, v in state_dict.items()
-            if k in own and tuple(own[k].shape) == tuple(v.shape)}
+    take, inflated = {}, 0
+    for k, v in sub_to_normal_bn_sd(state_dict).items():
+        if k not in own:
+            continue
+        w = inflate_kernel(own[k], v, inflate_temporal)
+        if tuple(own[k].shape) == tuple(w.shape):
+            take[k] = w.to(own[k].dtype)
+            inflated += int(w.numel() != v.numel())  # tiled kT times
     model.load_state_dict(take, strict=False)
     matched, kept = len(take), len(own) - len(take)
     if verbose:
-        print(f"partial load: matched {matched} tensors, kept {kept} at init")
+        msg = f"partial load: matched {matched} tensors, kept {kept} at init"
+        if inflate_temporal:
+            msg += f", temporally inflated {inflated}"
+        print(msg)
     return matched, kept
 
 
@@ -402,8 +628,11 @@ def save_checkpoint(output_path: str, arch: str, model: torch.nn.Module,
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The raw payload of a ``.pth.tar`` on the CPU (unpickled: trusted
-    files only)."""
+    """The raw payload of a ``.pth.tar`` on the CPU, or a Caffe2 ``.pkl``
+    as ``load_caffe2_checkpoint`` reads it (the JAX ``load_checkpoint``
+    dispatches on the extension too); unpickled: trusted files only."""
+    if path.endswith(".pkl"):
+        return load_caffe2_checkpoint(path)
     return torch.load(path, map_location="cpu", weights_only=False)
 
 
@@ -463,14 +692,25 @@ def _restore_banks(banks: Mapping[str, torch.nn.Module], saved: Mapping,
 
 
 def load_bank_state(bank: torch.nn.Module, fields: Mapping) -> None:
-    """Carry a JAX bank (``MemTripletState``, ``NCEAverageState`` or
-    ``MemoryMoCoState``, as a mapping of its fields to numpy arrays) into
-    the port's bank, whose buffers bear the same names. Every buffer must
-    get a value; a field that is None (no intra-negative bank) is
-    skipped."""
+    """Carry a JAX bank (``MemTripletState``, ``NCEAverageState``,
+    ``MemoryMoCoState`` or ``MoCoState``, as a mapping of its fields to
+    numpy arrays, ``key_params`` as its flax tree) into the port's bank,
+    whose buffers bear the same names. Every buffer must get a value; a
+    field that is None (no intra-negative bank, no UberNCE labels) is
+    skipped. A ``MoCoState``'s ``key_params`` become the key encoder's
+    parameters; its BatchNorm statistics, which the JAX state does not
+    hold (the key forward never reads them), stay as they are."""
     own = bank.state_dict()
-    sd = {k: torch.from_numpy(np.array(v)).to(own[k].dtype)
-          for k, v in fields.items() if v is not None}
+    sd = {}
+    for k, v in fields.items():
+        if v is None:
+            continue
+        if k == "key_params":
+            sd.update(flax_moco_encoder_to_torch(v, {}, prefix="encoder_k"))
+            sd.update({n: t for n, t in own.items()
+                       if n.startswith("encoder_k.") and n not in sd})
+        else:
+            sd[k] = torch.from_numpy(np.array(v)).to(own[k].dtype)
     bank.load_state_dict(sd, strict=True)
 
 

@@ -8,9 +8,9 @@ Per epoch:
     set the positive sampling p to 1 - NMI, write ``vid_clusters.txt`` and
     rebuild the triplet loader on the pseudo-labels
     (``iterative_cluster_step``, reference online_train.py:599-667);
-  * the triplet or contrastive epoch (``LOSS.TYPE``): device
-    augmentation, one train step a batch (``train/steps.py``), metrics
-    read on the host only at log points;
+  * the triplet, contrastive or UberNCE (MoCo) epoch (``LOSS.TYPE``):
+    device augmentation, one train step a batch (``train/steps.py``),
+    metrics read on the host only at log points;
   * validation, retrieval every TRAIN.RETRIEVAL_INTERVAL epochs (it
     decides ``is_best``), and checkpoints, with ``--vector``'s
     every-epoch copy at the stable ``--checkpoint_path`` root.
@@ -20,12 +20,12 @@ views) come from one ``torch.Generator`` on the device, reseeded per step
 from 1234 (the JAX driver's ``base_key``), the epoch and the batch index,
 so a resumed run draws what an uninterrupted one would. Its stream is not
 ``jax.random``'s (ROADMAP hazard H2): the two packages train on different
-draws. The loss-side banks (``LOSS.MEM_TRIPLET``, the NCE banks, the MoCo
-queue) are saved with each checkpoint and restored on resume.
+draws. The loss-side banks (``LOSS.MEM_TRIPLET``, the NCE banks, the
+MemoryMoCo queue, UberNCE's ``moco`` key encoder and queue) are saved with
+each checkpoint and restored on resume.
 
-Not ported: LOSS.TYPE ``UberNCE`` (ROADMAP item 16) and more than one
-device (``--num_shards > 1``, a TPU.MESH_SHAPE over several devices; item
-10) raise ``NotImplementedError``.
+Not ported: more than one device (``--num_shards > 1``, a TPU.MESH_SHAPE
+over several devices; ROADMAP item 10) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -242,6 +242,60 @@ def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
     return losses.avg
 
 
+def ubernce_train_epoch(step_fn, train_loader, cfg, epoch: int,
+                        generator: torch.Generator, is_master: bool = True,
+                        sink=None, device="cuda") -> float:
+    """One MoCo InfoNCE / UberNCE epoch (reference UberNCE_train_epoch,
+    online_train.py:60-133; the JAX ``ubernce_train_epoch``) -> mean loss.
+    The triplet loader's anchor and positive clips, augmented on the
+    device, are the two views ``x1`` / ``x2``; the anchors' targets are
+    the labels."""
+    losses = AverageMeter("loss")
+    top1 = AverageMeter("top1")
+    top5 = AverageMeter("top5")
+    start = time.time()
+    thru = Throughput()
+    pending = []
+
+    def update(metrics, bsz):
+        losses.update(float(metrics["loss"]), bsz)
+        top1.update(float(metrics["top1"]), bsz)
+        top5.update(float(metrics["top5"]), bsz)
+
+    for batch_idx, batch in enumerate(train_loader):
+        generator.manual_seed(step_seed(epoch, batch_idx))
+        dev_batch = _device_batch(batch, cfg, generator, train=True,
+                                  device=device)
+        b = dev_batch["anchor"].shape[0]
+        metrics = step_fn({"x1": dev_batch["anchor"],
+                           "x2": dev_batch["positive"],
+                           "label": dev_batch["targets"][:b]}, generator)
+        pending.append((metrics, batch["__size__"]))
+        thru.tick(batch["__size__"])
+        if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
+            _drain(pending, update)
+            print(f"Train Epoch: {epoch} [{losses.count}]\t"
+                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})  "
+                  f"Top1:{top1.val:.4f} Top5:{top5.val:.4f}\t"
+                  f"{thru.items_per_sec:.1f} clips/s")
+            if sink:
+                it = epoch * len(train_loader) + batch_idx
+                sink.add_scalar("train/loss", losses.val, it)
+                sink.add_scalar("train/top1", top1.val, it)
+                sink.add_scalar("train/top5", top5.val, it)
+    _drain(pending, update)
+    if is_master:
+        runtime_h = (time.time() - start) / 3600
+        print(f"\nTrain set: Average loss: {losses.avg:.4f} "
+              f"({thru.items_per_sec:.1f} clips/s steady-state)")
+        append_metric_line(cfg.OUTPUT_PATH, "train_loss_and_acc.txt",
+                           f"epoch:{epoch} runtime:{round(runtime_h, 2)} "
+                           f"{losses.avg:.4f}")
+        if sink:
+            sink.add_scalar("epoch/train_loss", losses.avg, epoch)
+    return losses.avg
+
+
 def contrastive_modality(cfg) -> str:
     """``rgb`` when ``DATASET.MODALITY`` says so, else ``res`` (the JAX
     driver's rule; the default ``False`` gives ``res``)."""
@@ -252,7 +306,15 @@ def make_train_step(cfg, model, optimizer, schedule, banks, device="cuda"):
     """LOSS.TYPE dispatch (reference online_train.py:675-720; the JAX
     driver's ``_make_step_and_state``): the step of ``cfg``'s loss over
     ``banks`` (``steps.make_banks``) -> (step, epoch function)."""
-    from .steps import make_contrastive_train_step, make_triplet_train_step
+    from .steps import (make_contrastive_train_step, make_moco_train_step,
+                        make_triplet_train_step)
+
+    if cfg.LOSS.TYPE == "UberNCE":
+        return (make_moco_train_step(cfg, model, optimizer, schedule,
+                                     banks["moco"],
+                                     uber=cfg.MODEL.ARCH == "uber_nce",
+                                     device=device),
+                ubernce_train_epoch)
 
     if cfg.LOSS.TYPE == "triplet":
         kw = {"bank": banks["mem_triplet"]} if banks else {}
@@ -320,11 +382,7 @@ def iterative_cluster_step(model, cfg, eval_train_loader,
 
 
 def _check_supported(args, cfg) -> None:
-    if cfg.LOSS.TYPE == "UberNCE":
-        raise NotImplementedError(
-            "LOSS.TYPE 'UberNCE': not ported yet (ROADMAP.md, queue 1, "
-            "item 16)")
-    if cfg.LOSS.TYPE not in ("triplet", "contrastive"):
+    if cfg.LOSS.TYPE not in ("triplet", "contrastive", "UberNCE"):
         raise AssertionError(f"Loss Type:{cfg.LOSS.TYPE} not recognized "
                              "(reference online_train.py:719-720)")
     mesh = [int(d) for d in (cfg.TPU.MESH_SHAPE or [])]
@@ -336,13 +394,14 @@ def _check_supported(args, cfg) -> None:
 
 
 def train(args, cfg, device="cuda"):
-    """The pretrain loop on one device, triplet or contrastive (reference
-    online_train.train, :441-776). -> (model, optimizer, schedule,
-    banks)."""
+    """The pretrain loop on one device, triplet, contrastive or UberNCE
+    (reference online_train.train, :441-776). -> (model, optimizer,
+    schedule, banks)."""
     from ..models import model_selector
     from .checkpoint import (load_checkpoint, load_encoder_state,
-                             load_torch_checkpoint, resolve_checkpoint,
-                             restore_train_state, save_checkpoint)
+                             load_torch_checkpoint, merge_pretrained,
+                             resolve_checkpoint, restore_train_state,
+                             save_checkpoint)
     from .state import make_optimizer
     from .steps import make_banks
 
@@ -350,6 +409,10 @@ def train(args, cfg, device="cuda"):
     dev = resolve_device(device)
     is_master = True
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
+    if accum > 1 and cfg.LOSS.TYPE == "UberNCE":
+        # the momentum-encoder step has no accumulation path (JAX driver)
+        print("WARN: TRAIN.ACCUM_STEPS ignored for LOSS.TYPE=UberNCE")
+        cfg.TRAIN.ACCUM_STEPS = accum = 1
     if accum > 1 and cfg.TRAIN.BATCH_SIZE % accum != 0:
         raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} must "
                          f"divide ACCUM_STEPS={accum}")
@@ -406,15 +469,23 @@ def train(args, cfg, device="cuda"):
     optimizer, schedule = make_optimizer(cfg, model.parameters(),
                                          steps_per_epoch=len(train_loader))
     with torch.random.fork_rng(devices=[]):
-        banks = make_banks(cfg, len(train_loader.dataset))
+        banks = make_banks(cfg, len(train_loader.dataset), model)
 
     # --pretrain_path: weights only, no epoch or optimizer resume
-    # (reference load_pretrained_model, models/model_utils.py:148-156)
+    # (reference load_pretrained_model, models/model_utils.py:148-156); a
+    # Caffe2 .pkl too, a 2-D one inflated with SLOWFAST.CHECKPOINT_INFLATE
+    inflate = bool(cfg.SLOWFAST.CHECKPOINT_INFLATE)
     pretrain_path = getattr(args, "pretrain_path", None)
     if pretrain_path:
         load_encoder_state(model, load_torch_checkpoint(
-            pretrain_path)["torch_state_dict"], verbose=is_master)
-    if payload is not None:
+            pretrain_path)["torch_state_dict"], verbose=is_master,
+            inflate_temporal=inflate)
+    if payload is not None and "torch_state_dict" in payload:
+        # a Caffe2 .pkl as --checkpoint_path: weights by name and shape,
+        # as the JAX driver merges a converted checkpoint
+        merge_pretrained(model, payload["torch_state_dict"],
+                         verbose=is_master, inflate_temporal=inflate)
+    elif payload is not None:
         restore_train_state(model, optimizer, schedule, payload,
                             verbose=is_master, banks=banks)
 

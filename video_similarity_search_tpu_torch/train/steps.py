@@ -2,8 +2,12 @@
 the eval-mode embedding forward, the triplet step (reference
 ``triplet_train_epoch``, online_train.py:245-434; with ``LOSS.MEM_TRIPLET``
 against a labelled bank), the contrastive NCE / MemoryMoCo step (reference
-``contrastive_train_epoch``, :136-225) and the supervised classification
-step (reference coclr_classify.py:395-458).
+``contrastive_train_epoch``, :136-225), the MoCo InfoNCE / UberNCE step
+(reference ``UberNCE_train_epoch``, :60-133) and the supervised
+classification step (reference coclr_classify.py:395-458). For
+``MODEL.ARCH slowfast`` every forward takes the [slow, fast] pathways of
+``multipathway_input``, split on the device where the JAX steps split
+them.
 
 On CUDA they run the forward under ``torch.autocast`` in
 ``TPU.COMPUTE_DTYPE`` (bfloat16 by default, as the JAX package's registry
@@ -26,11 +30,13 @@ from ..losses import (INTRA_NEG_LAMBDA, RSP_LAMBDA, MemoryMoCo,
                       MemTripletLoss, NCEAverage, intra_neg_loss, llc_loss,
                       memory_moco_logits, nce_softmax_loss,
                       online_triplet_loss, rsp_loss)
+from ..models.moco import (MoCoBank, infonce_forward, moco_losses,
+                           query_network, ubernce_forward)
 from ..models.registry import compute_dtype, embedding_dim
+from ..models.slowfast import multipathway_input
 from ..utils.device import resolve_device
 
 
-PORTED_ARCHES = ("3dresnet", "s3d", "r3d")
 # the train steps' profiler ranges, in order: forward and loss, backward,
 # optimizer (a profiler over the real step splits its device time by them)
 RANGES = ("step.forward_loss", "step.backward", "step.optimizer")
@@ -38,10 +44,6 @@ RANGES = ("step.forward_loss", "step.backward", "step.optimizer")
 
 def _prepare(cfg, model: torch.nn.Module, device) -> tuple:
     """Move ``model`` to ``device``; -> (device, autocast dtype)."""
-    if cfg.MODEL.ARCH not in PORTED_ARCHES:
-        raise NotImplementedError(
-            f"steps for {cfg.MODEL.ARCH!r}: not ported yet "
-            "(ROADMAP.md, queue 1)")
     dev = resolve_device(device)
     model.to(dev)
     dtype = torch.float32
@@ -53,6 +55,15 @@ def _prepare(cfg, model: torch.nn.Module, device) -> tuple:
     return dev, dtype
 
 
+def model_input(cfg, clips: torch.Tensor):
+    """What the model takes for (B, T, H, W, C) ``clips``: SlowFast's
+    [slow, fast] pathways (``multipathway_input``), else the clips."""
+    if cfg.MODEL.ARCH == "slowfast":
+        return multipathway_input(clips, cfg.SLOWFAST.ALPHA,
+                                  fast_mask=cfg.SLOWFAST.FAST_MASK)
+    return clips
+
+
 def _first(out):
     """A model's embedding: the first entry of a tuple output (the
     temporal-downsample head's ``(projection, ds_logits)``), as the JAX
@@ -60,13 +71,24 @@ def _first(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def make_banks(cfg, n_data: int) -> Dict[str, torch.nn.Module]:
+def make_banks(cfg, n_data: int, model: Optional[torch.nn.Module] = None
+               ) -> Dict[str, torch.nn.Module]:
     """The loss-side banks that ``cfg`` trains with, on the CPU (the JAX
     driver's ``_make_step_and_state``): ``mem_triplet`` for
     ``LOSS.MEM_TRIPLET``; for ``LOSS.TYPE contrastive`` the ``memory_moco``
     queue with ``LOSS.MOCO`` (and no intra-negative), else the ``nce``
-    per-sample banks over the ``n_data`` training videos."""
+    per-sample banks over the ``n_data`` training videos; for ``UberNCE``
+    the ``moco`` bank: a copy of ``model``'s query network as the key
+    encoder and a queue of ``LOSS.K`` x ``LOSS.FEAT_DIM`` (with labels for
+    ``MODEL.ARCH uber_nce``)."""
     loss = cfg.LOSS
+    if loss.TYPE == "UberNCE":
+        if model is None:
+            raise ValueError("LOSS.TYPE UberNCE: make_banks needs the model "
+                             "(its key encoder is a copy of it)")
+        return {"moco": MoCoBank(query_network(model), K=loss.K,
+                                 dim=loss.FEAT_DIM,
+                                 with_labels=cfg.MODEL.ARCH == "uber_nce")}
     if loss.TYPE == "triplet" and loss.MEM_TRIPLET:
         return {"mem_triplet": MemTripletLoss(K=loss.MEM_TRIPLET_K,
                                               dim=embedding_dim(cfg))}
@@ -86,7 +108,7 @@ def make_embed_step(cfg, model: torch.nn.Module,
     -> float32 (B, D) embeddings, eval mode, under ``inference_mode``.
     Moves ``model`` to ``device`` and puts it in eval mode. A model that
     returns a tuple gives its first entry (a classifier's logits), as the
-    JAX step does."""
+    JAX step does; SlowFast gets its pathways (``model_input``)."""
     dev, dtype = _prepare(cfg, model, device)
     model.eval()
     use_amp = dtype != torch.float32
@@ -94,7 +116,7 @@ def make_embed_step(cfg, model: torch.nn.Module,
     def step(clips: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode(), torch.autocast(
                 dev.type, dtype=dtype, enabled=use_amp):
-            out = model(clips)
+            out = model(model_input(cfg, clips))
         return _first(out).float()
 
     return step
@@ -197,7 +219,7 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
         if use_rsp or use_llc or use_intra:
             clips.append(batch["extra"])
         with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
-            emb = _first(model(torch.cat(clips, 0)))
+            emb = _first(model(model_input(cfg, torch.cat(clips, 0))))
         emb = emb.float()
         mine = bank if use_mem else online_triplet_loss
         t_loss, n_triplets, negatives = mine(
@@ -352,7 +374,7 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
 
     def encode(clips):
         with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
-            return _first(model(clips)).float()
+            return _first(model(model_input(cfg, clips))).float()
 
     def loss_fn(batch, generator, nce_idx, perm):
         view1 = batch["view1"]
@@ -400,5 +422,67 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
             schedule.step()
         means = torch.stack(parts).mean(0)
         return dict(zip(names, means))
+
+    return step
+
+
+MOCO_T, MOCO_M = 0.07, 0.999  # reference model_utils.py:122-125, infoNCE.py
+
+
+def make_moco_train_step(cfg, model: torch.nn.Module,
+                         optimizer: torch.optim.Optimizer, schedule,
+                         bank: MoCoBank, uber: bool = False,
+                         device="cuda") -> Callable:
+    """Step for LOSS.TYPE='UberNCE', archs ``info_nce`` / ``uber_nce`` (the
+    JAX ``make_moco_train_step``; reference UberNCE_train_epoch,
+    online_train.py:60-133, and models/infoNCE.py): ``step(batch,
+    generator=None)`` with ``batch`` {``x1``, ``x2`` two augmented views
+    (B, T, H, W, C), ``label`` (B,)} -> metrics ``loss``, ``top1``,
+    ``top5`` as device tensors.
+
+    Queries of x1 from ``model`` (train mode, under autocast) and keys of
+    x2 from the bank's key encoder (train mode on its batch's statistics,
+    running statistics untouched: ROADMAP hazard H9) score against the
+    queue at T 0.07 in float32: InfoNCE's loss is logsumexp minus the
+    positive logit, UberNCE's (``uber``) the masked log-softmax mean over
+    the positives. Then, in the JAX step's order: the optimizer step, the
+    momentum update (m 0.999) of the key parameters from the *updated*
+    query parameters, and the enqueue of the keys computed before the
+    update, with their labels for UberNCE. (The reference's forward moves
+    the key encoder before it computes the keys; the port matches JAX,
+    ROADMAP Queue 3.) ``TRAIN.ACCUM_STEPS`` does not apply (the JAX
+    driver runs UberNCE at 1)."""
+    dev, dtype = _prepare(cfg, model, device)
+    bank.to(dev)
+    if dev.type == "cuda":
+        bank.to(memory_format=torch.channels_last_3d)
+    use_amp = dtype != torch.float32
+    query = query_network(model)
+
+    def step(batch: Dict[str, torch.Tensor],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        labels = batch["label"]
+        with record_function(RANGES[0]):
+            with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+                if uber:
+                    logits, mask, keys = ubernce_forward(
+                        model, bank, batch["x1"], batch["x2"], labels,
+                        T=MOCO_T)
+                else:
+                    logits, _, keys = infonce_forward(
+                        model, bank, batch["x1"], batch["x2"], T=MOCO_T)
+                    mask = None
+            loss, top1, top5 = moco_losses(logits, mask)
+        with record_function(RANGES[1]):
+            loss.backward()
+        with record_function(RANGES[2]):
+            optimizer.step()
+            schedule.step()
+            bank.momentum_update(query, MOCO_M)
+            bank.dequeue_and_enqueue(keys, labels if uber else None)
+        return {"loss": loss.detach(), "top1": top1, "top5": top5}
 
     return step
