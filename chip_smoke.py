@@ -130,6 +130,24 @@ and the sixth slice, SlowFast and the MoCo pretrain:
              second whose moco bank must be the saved one, byte-equal; 0
              nn1_cosine launches
 
+and the seventh slice, pretraining on more than one GPU (``parallel``):
+
+  dist       two gloo ranks (all_reduce / broadcast on CUDA tensors) share
+             the card, each fed its rows of the global batch of the UCF
+             config's triplet step: (a) one fp32 step of 4 anchors held to
+             the 1-rank step on the card and its fp64 run (parameters
+             bit-identical across ranks; loss, negatives; update and
+             statistics within 3x the 1-rank fp32's distance from fp64);
+             (b) ms a bf16 step of train_step's 96 clips at world 2 beside
+             1 rank and a world-1 NCCL group, a check of the path and not
+             a scaling number; (c) each rank's FINCH over a 24,000 x 128
+             bank launches nn1_cosine once, labels equal across ranks;
+             (d) the training CLI's ``_run`` on --gpu 0 inside a world-1
+             NCCL group for an epoch on the synthetic set's first 10
+             classes with a loss-side bank: LOSS.MEM_TRIPLET (640 slots)
+             with --iterative_cluster, and UberNCE; the files written,
+             the bank in the checkpoint
+
 then a ``timing`` line of each phase's seconds, the ``kernels`` summary line, the ``nvidia-smi`` name/power-limit line
 and ``{"ok": true, "device": {...}}`` as the last line. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; a path that
@@ -3244,6 +3262,353 @@ def phase_moco(paths):
     return {f"{t['arch']} {t['dtype']}": t["step_ms"] for t in timing}
 
 
+DIST_WORLD = 2  # gloo ranks sharing the one card
+DIST_CHECK_ANCHORS = 4  # the fp32 check's global batch: 12 clips
+DIST_BANK = 24_000  # > FINCH's DENSE_THRESHOLD (20,000): level 0 on the kernel
+DIST_JOIN_S = 600
+
+
+def dist_cfg(dtype=None):
+    cfg = load_cfg(UCF_YAML, ["OUTPUT_PATH", os.path.join(OUT, "dist")])
+    if dtype:
+        cfg.TPU.COMPUTE_DTYPE = dtype
+    return cfg
+
+
+def dist_init(cfg):
+    import torch
+
+    from video_similarity_search_tpu_torch.models import model_selector
+
+    torch.manual_seed(SEED)
+    return model_selector(cfg).state_dict()
+
+
+def dist_host(anchors: int):
+    """The global uint8 batch of ``anchors`` (train_step's clips at 32)."""
+    cfg = dist_cfg()
+    t, s = cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE
+    return triplet_batch(np.random.default_rng(SEED), anchors, t, s,
+                         n_cls=16)
+
+
+def dist_batch(cfg, host, gen, rank: int, world: int, dtype=None):
+    """Rank's rows of the global batch ``host``, augmented on the card with
+    the draws of the global batch (``train_augment``'s ``shard``);
+    ``targets`` [anchor labels; positive labels] of those rows."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+
+    b = host["targets"].shape[0] // 2 // world
+    rows = slice(rank * b, (rank + 1) * b)
+    out = {k: train_augment(torch.from_numpy(host[k][rows]).cuda(), gen,
+                            cfg.DATA.SAMPLE_SIZE, dataset=cfg.TRAIN.DATASET,
+                            pre_cropped=True, shard=(rank, world))
+           for k in train_views(cfg)}
+    if dtype is not None:
+        out = {k: v.to(dtype) for k, v in out.items()}
+    out["targets"] = torch.from_numpy(
+        host["targets"].reshape(2, world, b)[:, rank].reshape(-1)).cuda()
+    return out
+
+
+def dist_fp32_step(rank: int, world: int, dtype=None) -> dict:
+    """One fp32 (TF32 off) step of the check batch on rank's rows: the
+    loss, negatives, n_triplets and the state after it, on the host."""
+    import torch
+
+    cfg = dist_cfg("float32")
+    model, _, _, step, _ = fresh_trainer(cfg, dist_init(cfg), "cuda")
+    if dtype is not None:
+        model.to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    batch = dist_batch(cfg, dist_host(DIST_CHECK_ANCHORS), gen, rank, world,
+                       dtype)
+    met = step(batch, gen)
+    out = {"loss": float(met["loss"]), "n": int(met["n_triplets"]),
+           "neg": met["negatives"].cpu(),
+           "sd": {k: v.detach().cpu().double()
+                  for k, v in model.state_dict().items()}}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_step_ms(rank: int, world: int, dtype=None) -> dict:
+    """Median ms of the bf16 (or ``dtype``) step of train_step's global
+    batch (32 anchors, 96 clips) on rank's rows after two warm-up steps,
+    on the host clock around a synchronized step (augmentation of rank's
+    rows included)."""
+    import torch
+
+    cfg = dist_cfg(dtype)
+    _, _, _, step, _ = fresh_trainer(cfg, dist_init(cfg), "cuda")
+    host = dist_host(cfg.TRAIN.BATCH_SIZE)
+    gen = torch.Generator(device="cuda")
+    times, losses = [], []
+    for i in range(2 + TIMED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.manual_seed(SEED + 10 + i)
+        met = step(dist_batch(cfg, host, gen, rank, world), gen)
+        losses.append(float(met["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    del step
+    torch.cuda.empty_cache()
+    return {"step_ms": float(np.median(times[2:])), "step_ms_all": times[2:],
+            "losses": losses, "clips_per_step": 3 * cfg.TRAIN.BATCH_SIZE}
+
+
+def dist_rank(rank: int, world: int, port: int, out_path: str) -> None:
+    """One gloo rank of the dist phase, on card 0 beside the others."""
+    from datetime import timedelta
+
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from video_similarity_search_tpu_torch import parallel
+    from video_similarity_search_tpu_torch.cluster import fit_cluster
+    from video_similarity_search_tpu_torch.ops import fused_knn
+
+    torch.cuda.set_device(0)
+    parallel.initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank,
+                                    backend="gloo",
+                                    timeout=timedelta(seconds=300))
+    try:
+        out = {"fp32": dist_fp32_step(rank, world),
+               "bf16": dist_step_ms(rank, world)}
+        bank, _ = mixture(DIST_BANK, seed=1)
+        fused_knn.LAUNCHES = 0
+        t0 = time.perf_counter()
+        labels = fit_cluster(bank, method="finch", verbose=False,
+                             device="cuda")
+        out["cluster_s"] = time.perf_counter() - t0
+        out["launches"] = fused_knn.LAUNCHES
+        out["labels"] = np.asarray(labels)
+    finally:
+        parallel.destroy()
+    import pickle
+
+    with open(out_path % rank, "wb") as f:
+        pickle.dump(out, f)
+
+
+def run_ranks(world: int) -> list:
+    """``dist_rank`` on ``world`` spawned processes, joined within
+    DIST_JOIN_S (killed after it) -> their results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    work = tempfile.mkdtemp(dir=OUT)
+    path = os.path.join(work, "rank%d.pkl")
+    from video_similarity_search_tpu_torch import parallel
+
+    ctx = mp.start_processes(dist_rank,
+                             args=(world, parallel.free_port(), path),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DIST_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"dist ranks finish within {DIST_JOIN_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    out = []
+    for r in range(world):
+        with open(path % r, "rb") as f:
+            out.append(pickle.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+DIST_CLI_RUNS = {  # checkpoint bank name -> CLI options
+    "mem_triplet": ["--iterative_cluster", "LOSS.MEM_TRIPLET", "True",
+                    "LOSS.MEM_TRIPLET_K", str(MEM_TRIPLET_K),
+                    "ITERCLUSTER.INTERVAL", "1"],
+    "moco": ["MODEL.ARCH", "uber_nce", "LOSS.TYPE", "UberNCE",
+             "OPTIM.LR", str(NCE_CLI_LR)]}
+
+
+def dist_cli(paths) -> dict:
+    """The training CLI's ``_run`` (``_rank_device`` on --gpu 0, then
+    ``driver.train``) inside a world-1 NCCL group, one epoch on
+    NCE_CLI_CLASSES classes of the synthetic set with the MEM_TRIPLET bank
+    (and the cluster step), then with UberNCE's: the driver's broadcast of
+    the model and the bank, its checkpoint agreement, the synced BatchNorm
+    and the steps' gathers all run over NCCL, which takes CUDA tensors
+    only. Each run writes its logs (and NMIs and vid_clusters.txt with
+    --iterative_cluster) and a checkpoint that holds its bank. The NCE
+    banks take the same path (the GPU-marked hygiene test runs them).
+    -> {bank: its numbers}."""
+    from datetime import timedelta
+
+    import torch
+
+    from video_similarity_search_tpu_torch import parallel
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.config import arg_parser
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "dist_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    ann_val = train_cli_annotations(ann, work, NCE_CLI_CLASSES)[1]
+    out = {}
+    for bank, opts in DIST_CLI_RUNS.items():
+        run_out = os.path.join(work, bank)
+        flags = [o for o in opts if o.startswith("--")]
+        args = arg_parser().parse_args(
+            ["--cfg", UCF_YAML, "--output", run_out, "--device", "cuda",
+             "--gpu", "0"] + flags
+            + ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann_val,
+               "DATASET.OPTICAL_U_PATH", flow, "TRAIN.EPOCHS", "1",
+               "TRAIN.RETRIEVAL_INTERVAL", "1"]
+            + [o for o in opts if not o.startswith("--")])
+        torch.cuda.set_device(0)
+        parallel.initialize_distributed(
+            f"tcp://127.0.0.1:{parallel.free_port()}", 1, 0, backend="nccl",
+            timeout=timedelta(seconds=300))
+        t0 = time.perf_counter()
+        try:
+            cfg, _, _ = online_train._run(args)
+        finally:
+            parallel.destroy()
+        wall = time.perf_counter() - t0
+        logs = os.path.join(run_out, "tnet_checkpoints")
+        with open(os.path.join(logs, "train_loss_and_acc.txt")) as f:
+            losses = [float(ln.split()[-1]) for ln in f.read().splitlines()]
+        check(len(losses) == 1 and np.isfinite(losses[0]),
+              f"dist CLI ({bank}): one epoch, a finite loss")
+        saved = torch.load(os.path.join(logs, cfg.MODEL.ARCH,
+                                        "checkpoint.pth.tar"),
+                           map_location="cpu", weights_only=False)
+        check(saved["epoch"] == 1 and set(saved.get("banks", {})) == {bank},
+              f"dist CLI ({bank}): the checkpoint holds epoch 1 and the "
+              "bank")
+        out[bank] = {"wall_s": wall, "train_loss": losses}
+        if "--iterative_cluster" in flags:
+            with open(os.path.join(logs, "NMIs.txt")) as f:
+                out[bank]["nmi"] = f.read().split()
+            with open(os.path.join(run_out, "vid_clusters.txt")) as f:
+                n_labels = len(f.read().split())
+            n_train = NCE_CLI_CLASSES * (SYN["videos_per_class"] - 1)
+            check(len(out[bank]["nmi"]) == 1 and n_labels == n_train,
+                  f"dist CLI ({bank}): clustered once, {n_labels} labels")
+    return out
+
+
+def phase_dist(smi: str, paths):
+    """Data-parallel pretrain (``parallel``) on the one card: DIST_WORLD
+    gloo ranks (all_reduce / broadcast on CUDA tensors; NCCL refuses two
+    ranks on one GPU) each take their rows of the global batch. (a) Their
+    fp32 step of 4 anchors is held to the 1-rank step of the global batch
+    on the card and to its fp64 run: parameters bit-identical across
+    ranks, the same loss, negatives and n_triplets, the update and the
+    BatchNorm statistics within 3x the 1-rank fp32's distance from fp64;
+    (b) ms a bf16 step of train_step's 96 clips at world 2 beside 1 rank
+    and beside a world-1 NCCL group (the synced BatchNorm, the gathers and
+    the gradient all-reduce on one rank): a check of the path, not a
+    scaling number (one card shared, loopback gloo, ~135 MB of R3D-18
+    gradients a step through the host); (c) each rank's FINCH over a
+    24,000 x 128 bank launches nn1_cosine once and its labels are equal
+    across ranks; (d) ``dist_cli``: the training CLI in a world-1 NCCL
+    group with the MEM_TRIPLET and UberNCE banks."""
+    from datetime import timedelta
+
+    import torch
+
+    from video_similarity_search_tpu_torch import parallel
+
+    torch.cuda.empty_cache()
+    ref = {"fp32": dist_fp32_step(0, 1),
+           "fp64": dist_fp32_step(0, 1, torch.float64)}
+    one_rank = dist_step_ms(0, 1)
+    ranks = run_ranks(DIST_WORLD)
+    torch.cuda.set_device(0)
+    parallel.initialize_distributed(
+        f"tcp://127.0.0.1:{parallel.free_port()}", 1, 0, backend="nccl",
+        timeout=timedelta(seconds=300))
+    try:
+        nccl = dist_step_ms(0, 1)
+    finally:
+        parallel.destroy()
+    cli = dist_cli(paths)
+
+    w, one, r64 = ranks[0]["fp32"], ref["fp32"], ref["fp64"]
+    init = {k: v.double() for k, v in dist_init(dist_cfg()).items()}
+    same = all(torch.equal(ranks[0]["fp32"]["sd"][k], r["fp32"]["sd"][k])
+               for r in ranks[1:] for k in w["sd"])
+    out = {
+        "world": DIST_WORLD, "backend": "gloo", "check_anchors":
+        DIST_CHECK_ANCHORS,
+        "params_bit_identical_across_ranks": same,
+        "loss_world": w["loss"], "loss_one_rank": one["loss"],
+        "loss_fp64": r64["loss"],
+        "loss_rel_diff": abs(w["loss"] - one["loss"]) / abs(one["loss"]),
+        "negatives_equal": bool(torch.equal(w["neg"], one["neg"])),
+        "n_triplets": [w["n"], one["n"]],
+        "update_rel_err_world_vs_fp64": update_rel_err(w["sd"], r64["sd"],
+                                                       init),
+        "update_rel_err_one_rank_vs_fp64": update_rel_err(one["sd"],
+                                                          r64["sd"], init),
+        "update_rel_err_world_vs_one_rank": update_rel_err(w["sd"],
+                                                           one["sd"], init),
+        "bn_stat_max_abs_diff_world_vs_fp64": max_state_diff(
+            w["sd"], r64["sd"], True),
+        "bn_stat_max_abs_diff_one_rank_vs_fp64": max_state_diff(
+            one["sd"], r64["sd"], True),
+        "bf16_step_ms": {"one_rank": one_rank["step_ms"],
+                         "world_2_gloo_per_rank": [r["bf16"]["step_ms"]
+                                                   for r in ranks],
+                         "world_1_nccl": nccl["step_ms"]},
+        "bf16_step_ms_all": {"one_rank": one_rank["step_ms_all"],
+                             "world_2_gloo_rank0":
+                             ranks[0]["bf16"]["step_ms_all"],
+                             "world_1_nccl": nccl["step_ms_all"]},
+        "bf16_losses": {"one_rank": one_rank["losses"],
+                        "world_2_gloo": ranks[0]["bf16"]["losses"],
+                        "world_1_nccl": nccl["losses"]},
+        "clips_per_step": one_rank["clips_per_step"],
+        "timing_note": "a check of the path, not a scaling number: both "
+                       "ranks share one card and all-reduce ~135 MB of "
+                       "R3D-18 gradients a step over loopback gloo",
+        "cluster_bank": [DIST_BANK, 128],
+        "cluster_s_per_rank": [r["cluster_s"] for r in ranks],
+        "nn1_cosine_launches_per_rank": [r["launches"] for r in ranks],
+        "cluster_labels_equal_across_ranks": all(
+            np.array_equal(ranks[0]["labels"], r["labels"])
+            for r in ranks[1:]),
+        "n_clusters": int(len(np.unique(ranks[0]["labels"]))),
+        "cli_world_1_nccl": cli,
+        "nvidia_smi": smi}
+    emit("dist", **out)
+    check(same, "dist: parameters and statistics bit-identical across ranks")
+    check(out["loss_rel_diff"] <= 1e-4, "dist: the world-2 fp32 loss equals "
+          f"the 1-rank loss within 1e-4 relative ({out['loss_rel_diff']})")
+    check(out["negatives_equal"] and w["n"] == one["n"] > 0,
+          "dist: the same mined negatives and n_triplets as 1 rank")
+    err, err_one = (out["update_rel_err_world_vs_fp64"],
+                    out["update_rel_err_one_rank_vs_fp64"])
+    check(err <= 3 * err_one + 1e-5, f"dist: the world-2 update is within "
+          f"{err} of fp64's, the 1-rank fp32 update within {err_one}")
+    bn, bn_one = (out["bn_stat_max_abs_diff_world_vs_fp64"][0],
+                  out["bn_stat_max_abs_diff_one_rank_vs_fp64"][0])
+    check(bn <= 3 * bn_one + 1e-6, f"dist: the world-2 BatchNorm statistics "
+          f"are within {bn} of fp64's, the 1-rank fp32 ones within {bn_one}")
+    for name, losses in out["bf16_losses"].items():
+        check(all(np.isfinite(losses)), f"dist: finite bf16 losses ({name})")
+    check(out["nn1_cosine_launches_per_rank"] == [1] * DIST_WORLD,
+          "dist: each rank's FINCH over 24,000 rows launches nn1_cosine once")
+    check(out["cluster_labels_equal_across_ranks"],
+          "dist: the ranks' cluster labels are equal")
+    return out["nn1_cosine_launches_per_rank"]
+
+
 def main() -> int:
     try:
         import torch
@@ -3300,6 +3665,7 @@ def main() -> int:
     run("classify_cli", phase_classify_cli, cls_rates)
     run("slowfast", phase_slowfast, smi)
     run("moco", phase_moco, paths)
+    dist_launches = run("dist", phase_dist, smi, paths)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()),
          notes="the data phase reads 3 epochs of the eval train loader "
                "(5 before the train_step and train_cli phases); train_cli "
@@ -3321,7 +3687,8 @@ def main() -> int:
         "fp32_simt_bound_ms": main_shape["fp32_simt_bound_ms"],
         "tflops_fp32_accurate": main_shape["tflops_fp32_accurate"],
         "sass": key_opcodes(sass["nn1_cosine"]),
-        "shape": main_shape["shape"], "shapes": shapes}]}), flush=True)
+        "shape": main_shape["shape"], "shapes": shapes,
+        "dist_launches_per_rank": dist_launches}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

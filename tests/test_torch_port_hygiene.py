@@ -1,13 +1,17 @@
-"""Rules the PyTorch port keeps: no JAX anywhere in it or in chip_smoke.py,
-no silent fall back to the CPU (the serving, clustering, training,
-contrastive, MoCo and classification entry points alike), its own copy of the native decoder, and (on a CUDA machine only)
-the CUDA 1-NN kernel agrees with its plain version, the pinned side-stream
-upload delivers the host batches, and the triplet and MoCo steps on the
-card equal the steps on the CPU."""
+"""Rules the PyTorch port keeps: no JAX anywhere in it (its ``parallel``
+package included) or in chip_smoke.py, no silent fall back to the CPU (the
+serving, clustering, training, contrastive, MoCo and classification entry
+points alike) nor to one process (a training launch over several ranks
+whose rendezvous fails raises within its timeout), its own copy of the
+native decoder, and (on a CUDA machine only) the CUDA 1-NN kernel agrees
+with its plain version, the pinned side-stream upload delivers the host
+batches, the triplet and MoCo steps on the card equal the steps on the
+CPU, and a world-1 NCCL step equals the step with no process group."""
 
 import argparse
 import ast
 import os
+import time
 
 import numpy as np
 import pytest
@@ -43,6 +47,38 @@ def test_port_and_chip_smoke_import_no_jax():
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, f"JAX-side imports in the port: {bad}"
+
+
+def test_parallel_package_imports_no_jax():
+    files = [f for f in _port_sources()
+             if os.sep + "parallel" + os.sep in f]
+    assert {os.path.basename(f) for f in files} >= {"__init__.py", "dist.py"}
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in FORBIDDEN]
+    assert not bad, f"JAX-side imports in the port's parallel package: {bad}"
+
+
+def test_num_shards_with_an_unreachable_rendezvous_raises(monkeypatch,
+                                                          tmp_path):
+    """``--num_shards 2 --shard_id 1`` against a localhost port where no
+    rank 0 listens: the CLI raises within the rendezvous timeout (cut to 5
+    s here) instead of training alone."""
+    from datetime import timedelta
+
+    from video_similarity_search_tpu_torch import parallel
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.parallel import dist as pdist
+
+    port = parallel.free_port()  # nobody listens on it
+    monkeypatch.setattr(pdist, "DEFAULT_TIMEOUT", timedelta(seconds=5))
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match="rendezvous .* failed"):
+        online_train.main(["--num_shards", "2", "--shard_id", "1",
+                           "--ip_address_port", f"tcp://127.0.0.1:{port}",
+                           "--device", "cpu", "--output", str(tmp_path)])
+    assert time.monotonic() - t0 < 60
+    assert not parallel.is_active()
+    assert not os.listdir(tmp_path)  # it trained nothing
 
 
 def test_entry_points_without_device_raise_on_a_box_without_cuda():
@@ -378,3 +414,142 @@ def test_moco_step_on_the_card_matches_the_cpu():
     assert float((out["cuda"][1]["bank.queue"]
                   - out["cpu"][1]["bank.queue"]).abs().max()) <= 1e-3
     assert errs["cpu"] <= 0.05 and errs["cuda"] <= 3 * errs["cpu"] + 1e-5
+
+
+@pytest.mark.gpu
+def test_world_1_nccl_step_matches_the_step_without_a_group():
+    """One fp32 triplet step on the card inside a world-1 NCCL group (the
+    synced BatchNorm, the gathers and the gradient all-reduce all run)
+    and without a group, from the same weights and draws: the same loss
+    (1e-4 relative), negatives and n_triplets, BatchNorm statistics within
+    1e-4 (relative above 1), and updates within 1e-4 of each other
+    (relative; 4.8e-6 measured on an H100): the synced BatchNorm sums in
+    another order than cuDNN's, and the stem's update sums terms that
+    mostly cancel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the step runs on the card")
+    from video_similarity_search_tpu_torch import parallel
+    from video_similarity_search_tpu_torch.config import get_cfg
+    from video_similarity_search_tpu_torch.data.augment import train_augment
+    from video_similarity_search_tpu_torch.losses.triplet import gumbel
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.train import (
+        make_optimizer, make_triplet_train_step)
+    cfg = get_cfg()
+    cfg.merge_from_list(["MODEL.ARCH", "3dresnet", "RESNET.MODEL_DEPTH", 10,
+                         "RESNET.NO_MAX_POOl", True, "RESNET.HIDDEN_LAYER",
+                         32, "RESNET.OUT_DIM", 8, "DATA.SAMPLE_DURATION", 4,
+                         "DATA.SAMPLE_SIZE", 32, "TPU.COMPUTE_DTYPE",
+                         "float32", "LOSS.LOCAL_LOCAL_CONTRAST", True,
+                         "DATASET.SAMPLING_STRATEGY", "random_semi_hard",
+                         "OPTIM.LR", 0.1])
+    torch.manual_seed(0)
+    init = model_selector(cfg).state_dict()
+    rng = np.random.default_rng(0)
+    clips = {k: torch.from_numpy(rng.integers(0, 256, (4, 4, 40, 40, 3),
+                                              np.uint8))
+             for k in ("anchor", "positive", "extra")}
+    noise = gumbel(torch.Generator().manual_seed(1), (8, 8, 8))
+    gen = torch.Generator().manual_seed(2)
+    batch = {k: train_augment(v, gen, 32).cuda() for k, v in clips.items()}
+    batch["targets"] = torch.tensor([0, 0, 1, 1] * 2, device="cuda")
+    port = parallel.free_port()
+    out = {}
+    for name in ("plain", "nccl"):
+        model = model_selector(cfg)
+        model.load_state_dict(init)
+        step = make_triplet_train_step(cfg, model,
+                                       *make_optimizer(cfg, model.parameters()),
+                                       device="cuda")
+        if name == "nccl":
+            torch.cuda.set_device(0)
+            parallel.initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                            backend="nccl")
+        try:
+            met = step(batch, noise=noise.cuda())
+            out[name] = (float(met["loss"]), met["negatives"].cpu(),
+                         int(met["n_triplets"]),
+                         {k: v.detach().cpu().double()
+                          for k, v in model.state_dict().items()})
+        finally:
+            parallel.destroy()
+    (lp, negp, np_, sdp), (ln, negn, nn_, sdn) = out["plain"], out["nccl"]
+    assert abs(ln - lp) <= 1e-4 * abs(lp)
+    assert torch.equal(negn, negp) and nn_ == np_ > 0
+    num = den = 0.0
+    for k, p in init.items():
+        if k.endswith(("running_mean", "running_var")):
+            scale = max(1.0, float(sdp[k].abs().max()))
+            assert float((sdn[k] - sdp[k]).abs().max()) <= 1e-4 * scale, k
+        elif not k.endswith("num_batches_tracked"):
+            num += float(((sdn[k] - sdp[k]) ** 2).sum())
+            den += float(((sdp[k] - p.double()) ** 2).sum())
+    print("world-1 NCCL update, relative distance from the plain step:",
+          (num / den) ** 0.5)
+    assert (num / den) ** 0.5 <= 1e-4
+
+
+NCCL_CLI_MODEL = {
+    "r3d": ("MODEL:\n  ARCH: 3dresnet\nRESNET:\n  MODEL_DEPTH: 10\n"
+            "  NO_MAX_POOl: true\n  HIDDEN_LAYER: 32\n  OUT_DIM: 8\n"
+            "DATA:\n  SAMPLE_SIZE: 32\n  SAMPLE_DURATION: 4\n"),
+    "s3d": ("MODEL:\n  ARCH: uber_nce\n"
+            "DATA:\n  SAMPLE_SIZE: 32\n  SAMPLE_DURATION: 8\n")}
+NCCL_CLI_LOSS = {  # the driver's loss-side banks, by checkpoint name
+    "mem_triplet": ("r3d", "LOSS:\n  MEM_TRIPLET: true\n  MEM_TRIPLET_K: 16\n"
+                           "DATASET:\n  SAMPLING_STRATEGY: random_negative\n"),
+    "nce": ("r3d", "LOSS:\n  TYPE: contrastive\n  K: 6\n  FEAT_DIM: 8\n"
+                   "  INTRA_NEGATIVE: true\n"),
+    "memory_moco": ("r3d", "LOSS:\n  TYPE: contrastive\n  K: 8\n"
+                           "  FEAT_DIM: 8\n  MOCO: true\n"),
+    "moco": ("s3d", "LOSS:\n  TYPE: UberNCE\n  K: 8\n")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bank", sorted(NCCL_CLI_LOSS))
+def test_world_1_nccl_training_cli_with_a_bank(bank, tmp_path):
+    """The training CLI's ``_run`` on card 0 inside a world-1 NCCL group,
+    for each kind of loss-side bank: the driver's broadcast of the model
+    and the bank, its checkpoint agreement, the synced BatchNorm and the
+    steps' gathers all go through NCCL, which takes CUDA tensors only. An
+    epoch ends with a finite loss and a checkpoint that holds the bank."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: NCCL runs on the card")
+    import sys
+
+    from video_similarity_search_tpu_torch import parallel
+    from video_similarity_search_tpu_torch.cli import online_train
+    from video_similarity_search_tpu_torch.config import arg_parser
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from synthetic_data import make_synthetic_ucf
+
+    vid, ann = make_synthetic_ucf(str(tmp_path / "data"))
+    model, loss = NCCL_CLI_LOSS[bank]
+    cfg_path = tmp_path / "cfg.yaml"
+    cfg_path.write_text(
+        NCCL_CLI_MODEL[model] + loss
+        + "TRAIN:\n  DATASET: ucf101\n  BATCH_SIZE: 4\n  EPOCHS: 1\n"
+        "  NUM_DATA_WORKERS: 2\n  LOG_INTERVAL: 100\n"
+        "  RETRIEVAL_INTERVAL: 1\nVAL:\n  BATCH_SIZE: 4\n"
+        "OPTIM:\n  LR: 0.01\nTPU:\n  COMPUTE_DTYPE: float32\n")
+    out = str(tmp_path / "out")
+    args = arg_parser().parse_args(
+        ["--cfg", str(cfg_path), "--output", out, "--device", "cuda",
+         "--gpu", "0", "DATASET.VID_PATH", vid,
+         "DATASET.ANNOTATION_PATH", ann])
+    torch.cuda.set_device(0)
+    parallel.initialize_distributed(f"tcp://127.0.0.1:{parallel.free_port()}",
+                                    1, 0, backend="nccl")
+    try:
+        cfg, _, _ = online_train._run(args)
+    finally:
+        parallel.destroy()
+    logs = os.path.join(out, "tnet_checkpoints")
+    with open(os.path.join(logs, "train_loss_and_acc.txt")) as f:
+        lines = f.read().splitlines()
+    assert len(lines) == 1 and np.isfinite(float(lines[0].split()[-1]))
+    saved = torch.load(os.path.join(logs, cfg.MODEL.ARCH,
+                                    "checkpoint.pth.tar"),
+                       map_location="cpu", weights_only=False)
+    assert saved["epoch"] == 1 and set(saved["banks"]) == {bank}

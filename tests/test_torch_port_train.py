@@ -314,12 +314,22 @@ def test_cli_two_epochs_and_resume_match_jax(setup, tmp_path, monkeypatch):
 
 
 def test_cli_refuses_what_is_not_ported(setup, tmp_path):
+    """More than one device is ported (tests/test_torch_port_dist.py), as
+    are LOSS.TYPE contrastive and UberNCE
+    (tests/test_torch_port_{contrastive,moco}.py). A TPU.MESH_SHAPE whose
+    product is not the world size has no GPU counterpart and raises, and
+    the driver asked for --num_shards 2 with no process group up refuses
+    to train alone."""
+    from video_similarity_search_tpu_torch.config import (arg_parser,
+                                                          load_config)
+    from video_similarity_search_tpu_torch.train import driver
     base = ["--cfg", setup["cfg"], "--output", str(tmp_path), "--device",
             "cpu"] + setup["extra"]
-    with pytest.raises(NotImplementedError, match="item 10"):
-        t_cli.main(base[:-4] + ["--num_shards", "2"] + base[-4:])
-    # LOSS.TYPE contrastive and UberNCE are ported
-    # (tests/test_torch_port_{contrastive,moco}.py)
+    with pytest.raises(ValueError, match="no GPU counterpart"):
+        t_cli.main(base + ["TPU.MESH_SHAPE", "[2, 2]"])
+    args = arg_parser().parse_args(["--num_shards", "2"] + base)
+    with pytest.raises(RuntimeError, match="no process group"):
+        driver.train(args, load_config(args), device="cpu")
 
 
 def test_metrics_sink_meter_and_step_profiler(tmp_path):

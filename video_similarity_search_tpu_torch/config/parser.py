@@ -5,6 +5,10 @@ Same CLI surface and the same precedence as the reference
 (config/m_parser.py:10-174): defaults -> ``--cfg`` YAML -> trailing
 ``opts`` pairs -> explicit flags. The port adds ``--device`` (default
 ``cuda``); it selects where the entry point runs and is not a config key.
+The launch flags are the JAX CLI's: ``--num_shards`` / ``--shard_id`` /
+``--ip_address_port`` (``--compute_canada``: the shard id from
+``$SLURM_NODEID``), and ``--gpu`` lists the local cards, one process each,
+as in the reference (default: one process on ``--device``).
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ def arg_parser() -> argparse.ArgumentParser:
                         help="Path to checkpoint")
     parser.add_argument("--cfg", "-cfg", default=None, dest="cfg_file", type=str,
                         help="Path to the config file")
-    parser.add_argument("--gpu", default="0,1", type=str,
-                        help="kept for CLI compatibility; use --device")
+    parser.add_argument("--gpu", default=None, type=str,
+                        help="local cards, one training process each (e.g. "
+                             "0,1); with --device cpu, the number of local "
+                             "CPU ranks; default: one process on --device")
     parser.add_argument("--device", default="cuda", type=str,
                         help="torch device to run on (cuda, cuda:1, cpu)")
     parser.add_argument("--output", default=None, type=str,
@@ -37,8 +43,9 @@ def arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--sample_size", default=None, type=int)
     parser.add_argument("--n_classes", default=None, type=int)
     parser.add_argument("--shard_id", default=0, type=int,
-                        help="process index for multi-process runs")
-    parser.add_argument("--num_shards", default=1, type=int)
+                        help="this node's index among --num_shards nodes")
+    parser.add_argument("--num_shards", default=1, type=int,
+                        help="number of nodes (each runs --gpu's processes)")
     parser.add_argument("--ip_address_port", "-ip", default="tcp://localhost:9999",
                         type=str, help="torch.distributed init address")
     parser.add_argument("opts", default=None, nargs=argparse.REMAINDER,

@@ -301,12 +301,20 @@ def apply_augment(clips_u8: torch.Tensor, params: Dict[str, torch.Tensor],
 
 def train_augment(clips_u8: torch.Tensor, generator: torch.Generator,
                   out_size: int, dataset: str = "ucf101",
-                  pre_cropped: bool = False) -> torch.Tensor:
+                  pre_cropped: bool = False,
+                  shard: Tuple[int, int] = (0, 1)) -> torch.Tensor:
     """Draw and apply: the train chain of the reference's spatial
     transforms (datasets/data_loader.py:96-108) on a uint8 batch that lies
-    on ``generator``'s device."""
-    params = draw_augment_params(generator, clips_u8.shape[0],
+    on ``generator``'s device. ``shard`` (rank, world): the batch is rank's
+    rows of a global batch of world x B clips; the parameters are drawn
+    for the global batch and rank's rows applied, so W ranks augment as
+    one process fed the global batch does."""
+    rank, world = shard
+    b = clips_u8.shape[0]
+    params = draw_augment_params(generator, b * world,
                                  pre_cropped=pre_cropped,
                                  in_hw=tuple(clips_u8.shape[2:4]))
+    if world > 1:
+        params = {k: v[rank * b:(rank + 1) * b] for k, v in params.items()}
     return apply_augment(clips_u8, params, out_size, dataset=dataset,
                          pre_cropped=pre_cropped)

@@ -17,6 +17,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import dist as pdist
+
 IntOr3 = Union[int, Sequence[int]]
 
 
@@ -49,6 +51,60 @@ class Conv3d(nn.Conv3d):
             nn.init.zeros_(self.bias)
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch of a process group (the
+    JAX package's cross-replica BatchNorm): the forward all-reduces each
+    channel's [sum x, sum x^2, n] and normalizes by the global mean and
+    biased variance E[x^2] - E[x]^2 (flax's one-pass form); the backward
+    all-reduces [sum dy, sum dy * xhat], so each rank's input gradient is
+    that of the global normalization. The affine gradients stay this
+    rank's sums (``sum_gradients`` adds them up). Statistics are float32
+    (float64 for a float64 input); the output has the input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        with torch.autocast(x.device.type, enabled=False):
+            xf = x.to(acc)
+            n = torch.tensor([x.numel() // x.shape[1]], dtype=acc,
+                             device=x.device)
+            sums = pdist.all_reduce_sum(torch.cat([
+                xf.sum(dims), (xf * xf).sum(dims), n]))
+            c = x.shape[1]
+            count = sums[2 * c]
+            mean = sums[:c] / count
+            var = (sums[c:2 * c] / count - mean * mean).clamp_min(0)
+            invstd = torch.rsqrt(var + eps)
+            scale = weight.to(acc) * invstd
+            y = xf * scale.view(shape) + (bias.to(acc)
+                                          - mean * scale).view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.count = count
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        acc = mean.dtype
+        with torch.autocast(x.device.type, enabled=False):
+            dyf = dy.to(acc)
+            xhat = (x.to(acc) - mean.view(shape)) * invstd.view(shape)
+            local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
+            c = x.shape[1]
+            dbias, dweight = local[:c].clone(), local[c:].clone()
+            total = pdist.all_reduce_sum(local) / ctx.count
+            dx = (dyf - total[:c].view(shape)
+                  - xhat * total[c:].view(shape)) \
+                * (weight.to(acc) * invstd).view(shape)
+        return (dx.to(x.dtype), dweight.to(weight.dtype),
+                dbias.to(weight.dtype), None)
+
+
 class _FlaxRunningVar:
     """Train-mode BatchNorm with flax's running statistics (ROADMAP hazard
     H1). Both packages normalize with the biased batch variance; flax
@@ -58,7 +114,9 @@ class _FlaxRunningVar:
     torch's fused ``F.batch_norm`` (statistics accumulated in float32, also
     for a bf16 input under autocast, as flax takes them on a float32 copy)
     and then rewrites the C-length running variance to flax's value.
-    Eval mode is torch's own.
+    Eval mode is torch's own. With a process group up (at any world size)
+    train mode normalizes by the global batch (``_SyncBatchNorm``) and
+    writes flax's statistics of it (ROADMAP hazard H6).
 
     ``frozen_stats`` is set while ``torch.utils.checkpoint`` recomputes a
     block's forward for the backward pass: the layer then normalizes by the
@@ -72,6 +130,18 @@ class _FlaxRunningVar:
         if not self.training:
             return super().forward(x)
         self._check_input_dim(x)
+        if pdist.is_active():
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps)
+            if not self.frozen_stats:
+                with torch.no_grad():
+                    self.num_batches_tracked.add_(1)
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(
+                        m * mean.to(self.running_mean.dtype))
+                    self.running_var.mul_(1.0 - m).add_(
+                        m * var.to(self.running_var.dtype))
+            return y
         if self.frozen_stats:  # the same call on copies of both statistics
             return F.batch_norm(x, self.running_mean.clone(),
                                 self.running_var.clone(), self.weight,
@@ -120,7 +190,9 @@ class SubBatchNorm(nn.Module):
     the mean of the group means and the mean of the group variances plus
     the spread of the group means. One affine ``weight`` / ``bias`` serves
     every group; eval mode normalizes by the running statistics.
-    Statistics are taken in float32 (float64 for a float64 input)."""
+    Statistics are taken in float32 (float64 for a float64 input). With a
+    process group up the groups are those of the global batch, and may
+    span ranks (``_global_group_stats``)."""
 
     frozen_stats = False  # as ``_FlaxRunningVar.frozen_stats``
 
@@ -140,12 +212,17 @@ class SubBatchNorm(nn.Module):
             mean = self.running_mean.to(xf.dtype).view(shape)
             var = self.running_var.to(xf.dtype).view(shape)
         else:
-            b, s = x.shape[0], self.num_splits
-            assert b % s == 0, f"batch {b} % num_splits {s} != 0"
-            g = xf.reshape((s, b // s) + tuple(x.shape[1:]))
-            mean = g.mean(dim=(1, 3, 4, 5))  # (splits, C)
-            var = (g - mean[:, None, :, None, None, None]).square().mean(
-                dim=(1, 3, 4, 5))
+            if pdist.is_active():
+                mean, var, row_group = self._global_group_stats(xf)
+            else:
+                b, s = x.shape[0], self.num_splits
+                assert b % s == 0, f"batch {b} % num_splits {s} != 0"
+                g = xf.reshape((s, b // s) + tuple(x.shape[1:]))
+                mean = g.mean(dim=(1, 3, 4, 5))  # (splits, C)
+                var = (g - mean[:, None, :, None, None, None]).square().mean(
+                    dim=(1, 3, 4, 5))
+                row_group = torch.arange(s, device=x.device
+                                         ).repeat_interleave(b // s)
             if not self.frozen_stats:
                 with torch.no_grad():
                     agg_mean = mean.mean(0)
@@ -155,12 +232,34 @@ class SubBatchNorm(nn.Module):
                                             + m * agg_mean)
                     self.running_var.copy_((1 - m) * self.running_var
                                            + m * agg_var)
-            mean = mean.repeat_interleave(b // s, dim=0)[..., None, None, None]
-            var = var.repeat_interleave(b // s, dim=0)[..., None, None, None]
+            mean = mean[row_group][..., None, None, None]
+            var = var[row_group][..., None, None, None]
         y = (xf - mean) * torch.rsqrt(var + self.eps)
         y = y * self.weight.to(xf.dtype).view(shape) + \
             self.bias.to(xf.dtype).view(shape)
         return y.to(x.dtype)
+
+    def _global_group_stats(self, xf: torch.Tensor):
+        """The groups' means and biased variances (splits, C) over the
+        global batch of a process group, whose rank r holds global items
+        [r b, (r + 1) b); a group may span ranks. Two passes, each one
+        differentiable all-reduce. -> (mean, var, this rank's items'
+        groups (b,))."""
+        rank, world = pdist.get_rank(), pdist.get_world_size()
+        b, s = xf.shape[0], self.num_splits
+        total = b * world
+        assert total % s == 0, f"global batch {total} % num_splits {s} != 0"
+        per_item = xf[0, 0].numel()
+        row_group = (rank * b + torch.arange(b, device=xf.device)
+                     ) // (total // s)
+        count = (total // s) * per_item
+        zeros = xf.new_zeros((s, xf.shape[1]))
+        mean = pdist.all_reduce_sum(zeros.index_add(
+            0, row_group, xf.sum(dim=(2, 3, 4)))) / count
+        dev = xf - mean[row_group][..., None, None, None]
+        var = pdist.all_reduce_sum(zeros.index_add(
+            0, row_group, dev.square().sum(dim=(2, 3, 4)))) / count
+        return mean, var, row_group
 
 
 @contextlib.contextmanager

@@ -27,6 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel import gather_rows
 from .heads import S3DEmbedder
 from .layers import frozen_stats
 
@@ -119,10 +120,14 @@ def infonce_forward(encoder: nn.Module, bank: MoCoBank, x1: torch.Tensor,
     encoder (``MoCoBank.keys``), both L2-normalized in float32, and the
     logits [q.k, q.queue^T] / T in float32 -> ``(logits (B, 1 + K),
     labels (B,) of zeros, keys)``. The caller does the momentum update
-    and the enqueue."""
+    and the enqueue. With a process group up ``x1`` and ``x2`` hold this
+    rank's rows; the queries (with their gradient) and keys are gathered
+    into the global batch, so the logits, labels and keys are the global
+    batch's (the JAX step's ``axis_name`` all-gather,
+    ``models/moco.py:92-101`` there)."""
     q = encoder(x1)
-    q = _l2norm((q[0] if isinstance(q, tuple) else q).float())
-    k = bank.keys(x2)
+    q = gather_rows(_l2norm((q[0] if isinstance(q, tuple) else q).float()))
+    k = gather_rows(bank.keys(x2))
     with torch.autocast(q.device.type, enabled=False):
         l_pos = (q * k).sum(dim=1, keepdim=True)
         logits = torch.cat([l_pos, q @ bank.queue.T], dim=1) / T
@@ -137,7 +142,8 @@ def ubernce_forward(encoder: nn.Module, bank: MoCoBank, x1: torch.Tensor,
     """UberNCE forward (reference models/infoNCE.py:203-288): the InfoNCE
     logits and a mask of the positives, column 0 (the instance's own key)
     and every queue entry whose label is the query's -> ``(logits, mask,
-    keys)``."""
+    keys)``. ``batch_labels`` are the global batch's (the step gathers
+    them)."""
     assert bank.queue_labels is not None, "UberNCE needs a labelled queue"
     logits, _, k = infonce_forward(encoder, bank, x1, x2, T)
     mask_queue = bank.queue_labels[None, :] == batch_labels[:, None]

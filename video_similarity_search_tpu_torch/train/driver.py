@@ -1,6 +1,7 @@
-"""Self-supervised pretrain driver on one device (port of the JAX package's
+"""Self-supervised pretrain driver (port of the JAX package's
 ``train/driver.py``; reference ``online_train.train``,
-online_train.py:441-776).
+online_train.py:441-776), on one device or data-parallel over a
+torch.distributed group of one process per GPU.
 
 Per epoch:
   * every ITERCLUSTER.INTERVAL epochs after WARMUP_EPOCHS: embed the whole
@@ -24,8 +25,18 @@ draws. The loss-side banks (``LOSS.MEM_TRIPLET``, the NCE banks, the
 MemoryMoCo queue, UberNCE's ``moco`` key encoder and queue) are saved with
 each checkpoint and restored on resume.
 
-Not ported: more than one device (``--num_shards > 1``, a TPU.MESH_SHAPE
-over several devices; ROADMAP item 10) raises ``NotImplementedError``.
+With a process group up (``parallel``; the CLI brings it up for
+``--num_shards``, ``--gpu`` or torchrun) the run has the JAX package's
+global-batch semantics (ROADMAP hazard H6): rank r of W trains on shard r
+of the train set with TRAIN.BATCH_SIZE / W clips a step, and the steps
+gather the global batch (``train/steps.py``), so W ranks step as one
+process fed the assembled global batch does; the step's generator is
+seeded alike on every rank and draws for the global batch. The embedding
+pass, the clustering, validation and retrieval run on every rank over the
+whole set, as the JAX driver's unsharded eval loaders and per-host
+clustering do, so every rank holds the same cluster labels in memory;
+only rank 0 writes ``vid_clusters.txt``, the txt logs, the metrics sink
+and checkpoints.
 """
 
 from __future__ import annotations
@@ -42,6 +53,8 @@ from ..data import build_data_loader, write_cluster_labels
 from ..data.augment import normalize_only, train_augment
 from ..evaluation import get_embeddings_and_labels, validate
 from ..evaluation.knn import k_nearest_embeddings
+from ..parallel import (agree, broadcast_module, check_mesh_shape, get_rank,
+                        get_world_size, is_active)
 from ..utils.cluster_metrics import (adjusted_mutual_info,
                                      normalized_mutual_info)
 from ..utils.device import resolve_device
@@ -87,8 +100,11 @@ def _device_batch(batch, cfg, generator: Optional[torch.Generator],
                   train: bool, device, accum: int = 1) -> dict:
     """uint8 host (or uploaded) batch -> normalized device batch, the
     train clips augmented on the device. ``accum > 1``: clip leaves are
-    (A, b, T, H, W, C), augmented per microbatch and restacked."""
+    (A, b, T, H, W, C), augmented per microbatch and restacked. With a
+    process group up the batch is this rank's rows, and the augmentation
+    is drawn for the global batch (``train_augment``'s ``shard``)."""
     dev = resolve_device(device)
+    rows = (get_rank(), get_world_size())
     dataset = cfg.TRAIN.DATASET
     pre_cropped = bool(cfg.TPU.HOST_RRC)
     size = cfg.DATA.SAMPLE_SIZE
@@ -103,12 +119,12 @@ def _device_batch(batch, cfg, generator: Optional[torch.Generator],
         elif accum > 1:
             out[name] = torch.stack([
                 train_augment(clips[a], generator, size, dataset=dataset,
-                              pre_cropped=pre_cropped)
+                              pre_cropped=pre_cropped, shard=rows)
                 for a in range(accum)])
         else:
             out[name] = train_augment(clips, generator, size,
                                       dataset=dataset,
-                                      pre_cropped=pre_cropped)
+                                      pre_cropped=pre_cropped, shard=rows)
     for name in ("targets", "index"):
         if name in batch:
             leaf = batch[name]
@@ -385,17 +401,26 @@ def _check_supported(args, cfg) -> None:
     if cfg.LOSS.TYPE not in ("triplet", "contrastive", "UberNCE"):
         raise AssertionError(f"Loss Type:{cfg.LOSS.TYPE} not recognized "
                              "(reference online_train.py:719-720)")
-    mesh = [int(d) for d in (cfg.TPU.MESH_SHAPE or [])]
-    if int(getattr(args, "num_shards", 1) or 1) > 1 \
-            or int(np.prod(mesh or [1])) > 1:
-        raise NotImplementedError(
-            "training on more than one device: not ported yet (ROADMAP.md, "
-            "queue 1, item 10: torch.distributed with DDP)")
+    world = get_world_size()
+    if int(getattr(args, "num_shards", 1) or 1) > 1 and not is_active():
+        raise RuntimeError(
+            "--num_shards > 1 but no process group is up: join it first "
+            "(parallel.initialize_distributed; the CLI does) rather than "
+            "train alone")
+    check_mesh_shape(cfg.TPU.MESH_SHAPE, world)
+    for key, bsz in (("TRAIN.BATCH_SIZE", cfg.TRAIN.BATCH_SIZE),
+                     ("VAL.BATCH_SIZE", cfg.VAL.BATCH_SIZE)):
+        # the JAX driver's asserts over its devices (:436-441)
+        if bsz % world != 0:
+            raise ValueError(f"{key}={bsz} must divide over {world} ranks "
+                             "(the reference asserts the same for NUM_GPUS, "
+                             "online_train.py:797-798)")
 
 
 def train(args, cfg, device="cuda"):
-    """The pretrain loop on one device, triplet, contrastive or UberNCE
-    (reference online_train.train, :441-776). -> (model, optimizer,
+    """The pretrain loop, triplet, contrastive or UberNCE (reference
+    online_train.train, :441-776), on ``device``: one device, or this
+    rank's card when a process group is up. -> (model, optimizer,
     schedule, banks)."""
     from ..models import model_selector
     from .checkpoint import (load_checkpoint, load_encoder_state,
@@ -407,15 +432,17 @@ def train(args, cfg, device="cuda"):
 
     _check_supported(args, cfg)
     dev = resolve_device(device)
-    is_master = True
+    rank, world = get_rank(), get_world_size()
+    is_master = rank == 0
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
     if accum > 1 and cfg.LOSS.TYPE == "UberNCE":
         # the momentum-encoder step has no accumulation path (JAX driver)
-        print("WARN: TRAIN.ACCUM_STEPS ignored for LOSS.TYPE=UberNCE")
+        if is_master:
+            print("WARN: TRAIN.ACCUM_STEPS ignored for LOSS.TYPE=UberNCE")
         cfg.TRAIN.ACCUM_STEPS = accum = 1
-    if accum > 1 and cfg.TRAIN.BATCH_SIZE % accum != 0:
+    if accum > 1 and cfg.TRAIN.BATCH_SIZE % (accum * world) != 0:
         raise ValueError(f"TRAIN.BATCH_SIZE={cfg.TRAIN.BATCH_SIZE} must "
-                         f"divide ACCUM_STEPS={accum}")
+                         f"divide over ACCUM_STEPS={accum} x {world} ranks")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)  # the JAX driver initializes from key(0)
         model = model_selector(cfg)
@@ -426,6 +453,12 @@ def train(args, cfg, device="cuda"):
     # start epoch: a resume re-enables the pseudo-labels at once
     ckpt_path = resolve_checkpoint(getattr(args, "checkpoint_path", None),
                                    cfg.MODEL.ARCH, allow_missing=vector)
+    if not agree(float(ckpt_path is not None)):
+        # every rank reads the checkpoint: it must live on a filesystem
+        # that all of them share (the JAX driver's check, :465-479)
+        raise RuntimeError(f"--checkpoint_path resolves on some ranks only "
+                           f"(rank {rank}: {ckpt_path}); checkpoints must "
+                           "live on a filesystem shared by every rank")
     payload = load_checkpoint(ckpt_path) if ckpt_path else None
     start_epoch, best_prec1 = 0, 0.0
     if payload is not None:
@@ -440,13 +473,17 @@ def train(args, cfg, device="cuda"):
             cfg.DATASET.CLUSTER_PATH = cluster_file
             # the run trained on cluster labels before it stopped
             cfg.DATASET.TARGET_TYPE_T = "cluster_label"
-        else:
+        elif is_master:
             print(f"resume: {cluster_file} not found; using true labels "
                   "until the next clustering step")
 
     def make_train_loader():
+        # rank's shard of the index stream, BATCH_SIZE / W clips a step, so
+        # the global batch stays BATCH_SIZE (the JAX driver's :511-538)
         loader, _ = build_data_loader("train", cfg, is_master, triplets=True,
                                       cluster_labels=cluster_labels,
+                                      shard_index=rank, num_shards=world,
+                                      batch_size=cfg.TRAIN.BATCH_SIZE // world,
                                       device=dev)
         if accum > 1:
             # uploaded clip leaves arrive (A, b, ...) already
@@ -456,12 +493,14 @@ def train(args, cfg, device="cuda"):
     train_loader = make_train_loader()
     val_loader, _ = build_data_loader("val", cfg, is_master, triplets=True,
                                       negative_sampling=True, device=dev)
+    # every rank embeds the whole set (the JAX driver's eval loaders are
+    # not sharded either); the eval batch rounds to the world size
     eval_train_loader, _ = build_data_loader(
         "train", cfg, is_master, triplets=False, req_train_shuffle=False,
-        drop_last=False, device=dev)
+        drop_last=False, device=dev, device_count=world)
     eval_val_loader, _ = build_data_loader(
         "val", cfg, is_master, triplets=False, val_sample=None,
-        drop_last=False, device=dev)
+        drop_last=False, device=dev, device_count=world)
 
     model.to(dev)
     if dev.type == "cuda":
@@ -489,6 +528,12 @@ def train(args, cfg, device="cuda"):
         restore_train_state(model, optimizer, schedule, payload,
                             verbose=is_master, banks=banks)
 
+    # every rank starts from rank 0's weights and banks, on its card first:
+    # make_banks builds them on the CPU and NCCL takes no CPU tensor
+    broadcast_module(model)
+    for bank in banks.values():
+        bank.to(dev)
+        broadcast_module(bank)
     step_fn, epoch_fn = make_train_step(cfg, model, optimizer, schedule,
                                         banks, device=dev)
     generator = torch.Generator(device=dev)
@@ -496,7 +541,8 @@ def train(args, cfg, device="cuda"):
                        enabled=bool(cfg.TRAIN.METRICS_SINK) and is_master)
 
     for epoch in range(start_epoch, cfg.TRAIN.EPOCHS):
-        print(f"\nEpoch {epoch}/{cfg.TRAIN.EPOCHS - 1}")
+        if is_master:
+            print(f"\nEpoch {epoch}/{cfg.TRAIN.EPOCHS - 1}")
         if (iter_cluster and epoch >= cfg.ITERCLUSTER.WARMUP_EPOCHS
                 and (epoch - cfg.ITERCLUSTER.WARMUP_EPOCHS)
                 % cfg.ITERCLUSTER.INTERVAL == 0):
@@ -536,6 +582,8 @@ def train(args, cfg, device="cuda"):
 
         # --vector: OUTPUT_PATH only on milestone epochs, and always the
         # stable root (reference online_train.py:756-776)
+        if not is_master:
+            continue
         if not vector or (epoch % 100 == 0 or is_best
                           or epoch == cfg.TRAIN.EPOCHS - 1):
             save_checkpoint(cfg.OUTPUT_PATH, cfg.MODEL.ARCH, model,

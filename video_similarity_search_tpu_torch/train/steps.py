@@ -16,6 +16,14 @@ sets float32, as the JAX one runs), with ``channels_last_3d`` weights,
 and with TF32 off for cuDNN and cuBLAS: a float32 compute dtype then
 means IEEE float32, as in the JAX reference, and bf16 work is unaffected
 (ROADMAP hazard H3). Losses are taken in float32 outside autocast.
+
+With a process group up (``parallel``) the pretrain steps take the JAX
+package's global-batch semantics: each rank encodes its own rows, the
+embeddings (with their gradient), targets and indices are gathered into
+the global batch in global order, every rank computes the same global
+loss and advances the same banks, the draws are made for the global batch
+from a generator seeded alike on every rank, and the parameter gradients
+are summed across ranks before the one optimizer step.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from ..models.moco import (MoCoBank, infonce_forward, moco_losses,
                            query_network, ubernce_forward)
 from ..models.registry import compute_dtype, embedding_dim
 from ..models.slowfast import multipathway_input
+from ..parallel import (gather_parts, gather_rows, get_rank, get_world_size,
+                        sum_gradients)
 from ..utils.device import resolve_device
 
 
@@ -191,7 +201,11 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
     labels]. The views go through ONE train-mode forward over
     ``cat([anchor, positive, extra])``, so BatchNorm sees all 3B clips, as
     the reference's TripletNet does. ``noise`` / ``generator``: the
-    miner's draws (``losses/triplet.py``)."""
+    miner's draws (``losses/triplet.py``). With a process group up the
+    batch holds this rank's rows: the embeddings and targets are gathered
+    into the global [anchors; positives; extras] and [anchor labels;
+    positive labels] first, and the loss, the picks and the draws are the
+    global batch's."""
     use_mem = bool(cfg.LOSS.MEM_TRIPLET)
     if use_mem and bank is None:
         raise ValueError("LOSS.MEM_TRIPLET trains against a bank: pass "
@@ -214,16 +228,17 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
     def loss_fn(batch: Dict[str, torch.Tensor],
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None):
-        b = batch["anchor"].shape[0]
         clips = [batch["anchor"], batch["positive"]]
         if use_rsp or use_llc or use_intra:
             clips.append(batch["extra"])
         with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
             emb = _first(model(model_input(cfg, torch.cat(clips, 0))))
-        emb = emb.float()
+        emb = gather_parts(emb.float(), len(clips))
+        targets = gather_parts(batch["targets"], 2)
+        b = emb.shape[0] // len(clips)
         mine = bank if use_mem else online_triplet_loss
         t_loss, n_triplets, negatives = mine(
-            emb[:2 * b], batch["targets"], margin=margin, dist_metric=metric,
+            emb[:2 * b], targets, margin=margin, dist_metric=metric,
             sampling_strategy=strategy, noise=noise, generator=generator)
         aux_loss = torch.zeros((), device=emb.device)
         if use_rsp:
@@ -263,7 +278,9 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
     ``LOSS.MEM_TRIPLET`` bank, the loss metrics are the microbatch means
     and ``n_triplets`` their sum. ``noise`` is then a sequence of A
     per-microbatch draws. Mining and BatchNorm are microbatch-local, as in
-    the JAX scan."""
+    the JAX scan. With a process group up, global microbatch a is every
+    rank's microbatch a, in rank order, and the summed gradient is the
+    ranks' sum."""
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
     loss_fn = make_triplet_loss_fn(cfg, model, device, bank)
     params = [p for p in model.parameters() if p.requires_grad]
@@ -278,6 +295,7 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
                 loss, aux = loss_fn(batch, noise, generator)
             with record_function(RANGES[1]):
                 loss.backward()
+                sum_gradients(params)
             metrics = {"loss": loss.detach(), **aux}
         else:
             parts = []
@@ -289,6 +307,7 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
                 with record_function(RANGES[1]):
                     loss.backward()
                 parts.append({"loss": loss.detach(), **aux})
+            sum_gradients(params)
             with torch.no_grad():
                 for p in params:
                     if p.grad is not None:
@@ -322,13 +341,16 @@ def shuffle_view(x: torch.Tensor, perms: Optional[torch.Tensor] = None,
     ``block_size`` by its own permutation (reference
     datasets/temporal_transforms.py Shuffle, :233-246); trailing frames
     that fill no block keep their place. ``perms`` (B, T // block_size)
-    gives the permutations, or they are drawn from ``generator``."""
+    gives the permutations of the global batch, or they are drawn from
+    ``generator`` for it; with a process group up ``x`` holds this rank's
+    rows and takes their permutations."""
     b, t = x.shape[0], x.shape[1]
     n_blocks = t // block_size
+    rank, world = get_rank(), get_world_size()
     if perms is None:
-        perms = torch.rand(b, n_blocks, generator=generator,
+        perms = torch.rand(b * world, n_blocks, generator=generator,
                            device=generator.device).argsort(dim=1)
-    perms = perms.to(x.device).long()
+    perms = perms[rank * b:(rank + 1) * b].to(x.device).long()
     idx = (perms[:, :, None] * block_size
            + torch.arange(block_size, device=x.device)).reshape(b, -1)
     if idx.shape[1] < t:
@@ -363,7 +385,10 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
     the NCE negatives ``nce_idx`` (B, K+1) and the shuffle permutations,
     injected or drawn from ``generator``; with ``TRAIN.ACCUM_STEPS`` A > 1
     the batch leaves are (A, b, ...), the injections sequences of A, and
-    the bank and BatchNorm statistics chain through the microbatches."""
+    the bank and BatchNorm statistics chain through the microbatches.
+    With a process group up each view's features and the indices are
+    gathered into the global batch before they score and update the
+    banks, and the draws are the global batch's."""
     dev, dtype = _prepare(cfg, model, device)
     bank.to(dev)
     use_amp = dtype != torch.float32
@@ -382,13 +407,14 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
                  else batch["view2"]]
         if intra_neg and not use_moco:
             views.append(shuffle_view(view1, perm, generator))
-        feats = [encode(v) for v in views]
+        feats = [gather_rows(encode(v)) for v in views]
         if use_moco:
             out2 = memory_moco_logits(bank.memory, feats[1], feats[0],
                                       T=temperature)
             out1 = bank(feats[0], feats[1])
         else:
-            out1, out2 = bank(feats[0], feats[1], batch["index"],
+            out1, out2 = bank(feats[0], feats[1],
+                              gather_rows(batch["index"]),
                               neg=feats[2] if intra_neg else None,
                               idx=nce_idx, generator=generator)
         l1, l2 = nce_softmax_loss(out1), nce_softmax_loss(out2)
@@ -412,6 +438,7 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
                 loss.backward()
             parts.append(torch.stack([loss.detach()]
                                      + [v.detach() for v in aux]))
+        sum_gradients(params)
         if accum > 1:
             with torch.no_grad():
                 for p in params:
@@ -451,20 +478,23 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
     update, with their labels for UberNCE. (The reference's forward moves
     the key encoder before it computes the keys; the port matches JAX,
     ROADMAP Queue 3.) ``TRAIN.ACCUM_STEPS`` does not apply (the JAX
-    driver runs UberNCE at 1)."""
+    driver runs UberNCE at 1). With a process group up the queries, keys
+    and labels are gathered into the global batch (``infonce_forward``),
+    so every rank scores, enqueues and updates alike."""
     dev, dtype = _prepare(cfg, model, device)
     bank.to(dev)
     if dev.type == "cuda":
         bank.to(memory_format=torch.channels_last_3d)
     use_amp = dtype != torch.float32
     query = query_network(model)
+    params = [p for p in model.parameters() if p.requires_grad]
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        labels = batch["label"]
+        labels = gather_rows(batch["label"])
         with record_function(RANGES[0]):
             with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
                 if uber:
@@ -478,6 +508,7 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
             loss, top1, top5 = moco_losses(logits, mask)
         with record_function(RANGES[1]):
             loss.backward()
+            sum_gradients(params)
         with record_function(RANGES[2]):
             optimizer.step()
             schedule.step()
