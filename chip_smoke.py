@@ -24,14 +24,17 @@ data, in phases that each print one JSON line:
              through the CUDA 1-NN kernel), sparse-vs-dense level-0 parity on
              20k points, and FINCH on the 4096 embeddings (dense path)
   retrieval  k_nearest_embeddings over the embed phase's embeddings, and
-             top-50 of 9,537 queries over the 240k bank
+             top-50 of 9,537 queries over the 240k bank, exact and with
+             approx=True (TPU.APPROX_TOPK), which must return the same
 
 and the host data path, on the UCF config
 (configs/resnet_ucf_itercluster_flow.yaml, with only the data paths set):
 
   host       the host's compiler, libjpeg header and library, OpenCV and
-             PIL, core count, and the port's native JPEG decoder build (the
-             decode backend, ``native`` or ``pil``, is printed loudly)
+             PIL, core count, the port's native JPEG decoder build (the
+             decode backend, ``native`` or ``pil``, is printed loudly), the
+             msgpack / pandas / lmdb / matplotlib / sklearn packages (the
+             port needs none) and a cv2 MJPG write -> read round trip
   data       a seeded synthetic UCF-layout JPEG dataset (40 classes x 12
              videos at 320x240, optical_u frames) under runs/chip_smoke/,
              reused when present; loader-only clips/s of the eval train
@@ -108,6 +111,32 @@ and the fifth slice, the rest of SLIC's single-device pretrain:
              an epoch, then a resumed second whose banks must be the saved
              ones, byte-equal
 
+and the eighth slice (run after classify_cli), CoCLR's LMDB path and IIC
+clip retrieval:
+
+  lmdb       a seeded CoCLR store (ClassInd.txt, the split csvs and
+             ucf101_frame.lmdb of msgpack-framed 320x240 JPEGs, 48-64 frames
+             a video, 64 train videos) written by the port's write_lmdb
+             under runs/chip_smoke/, reused when present; one item of each
+             mode held byte-equal to a direct read of the file; python -m
+             video_similarity_search_tpu_torch.cli.coclr_classify
+             --lmdb_root at the CLI's defaults (S3D, 32 clips of 32x128x128,
+             101 classes, float32; --lr 0.1) for an epoch of --train_what
+             last with the pinned upload, then in this process the ten-crop
+             test on its model_best.pth.tar and --retrieval; the loader-fed
+             clips/s beside classify_step's; each CoCLR clip transform on
+             32 clips of 32x128x128 timed and held to the CPU from the same
+             injected draws; 0 nn1_cosine launches
+  iic        seeded MJPG videos (320x240, 48-80 frames) in the UCF layout of
+             the IIC datasets; python -m
+             video_similarity_search_tpu_torch.cli.iic_retrieve_clips on a
+             .pth.tar of the UCF config's R3D-18 from seed 0 (10 clips of
+             16x128x128 a video, bf16): topk_correct.json, the features
+             held to an in-process pass, decode ms a video, the feature
+             pass's clips/s and its share of the bf16 bound (utils/flops.py's
+             resnet3d_flops_per_clip, held equal to the hooks' count); 0
+             nn1_cosine launches
+
 and the sixth slice, SlowFast and the MoCo pretrain:
 
   slowfast   get_cfg()'s defaults unchanged (SlowFast-50, ALPHA 4, BETA_INV
@@ -182,12 +211,6 @@ KERNELS = {
                    "video_similarity_search_tpu/ops/pallas_knn.py:37"),
 }
 
-# (fp32 CUDA-core FLOP/s, TF32 tensor-core FLOP/s, HBM bytes/s, bf16
-# tensor-core FLOP/s) from NVIDIA's data sheets, dense (the tensor-core
-# rates are half the sparse figures)
-PEAKS = {"PCIe": (51e12, 378e12, 2.0e12, 756e12),
-         "NVL": (60e12, 417.5e12, 3.9e12, 835.5e12),
-         "SXM": (67e12, 495e12, 3.35e12, 989e12)}
 # nn1_cosine's fp32-accurate products take three TF32 passes (3xTF32)
 TF32_PASSES = 3
 
@@ -226,13 +249,6 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
-
-
-def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "SXM", PEAKS["SXM"]
 
 
 def time_ms(fn, reps: int = 5) -> float:
@@ -343,6 +359,7 @@ def phase_kernel_nn1(smi: str, sass: dict, bank: np.ndarray):
     from video_similarity_search_tpu_torch.ops import fused_knn
     from video_similarity_search_tpu_torch.ops.pdist import (l2_normalize,
                                                               nearest_neighbor)
+    from video_similarity_search_tpu_torch.utils.flops import peaks_for
 
     variant, (fp32_peak, tf32_peak, bw_peak, _) = peaks_for(smi)
     rng = np.random.default_rng(SEED)
@@ -636,9 +653,15 @@ def phase_retrieval(model, cfg, cache, bank):
     ref = torch.sort(d, dim=1, stable=True).indices[:, :k]
     check(bool((ref == idx[:16]).all()), "top-k equals a full stable sort")
     ms = time_ms(lambda: topk_neighbors(q, b, k), reps=3)
+    # TPU.APPROX_TOPK: the exact top-k (recall 1.0) serves approx=True
+    a_idx, a_val = topk_neighbors(q, b, k, approx=True)
+    check(torch.equal(a_idx, idx) and torch.equal(a_val, val),
+          "approx=True returns the exact top-50")
     emit("retrieval", topk_acc={f"top{k_}": v for k_, v in acc.items()},
          topk_queries=int(q.shape[0]), topk_bank=int(bank.shape[0]), k=k,
-         topk_ms=ms)
+         topk_ms=ms, approx_topk_exact=True,
+         approx_topk_ms=time_ms(lambda: topk_neighbors(q, b, k, approx=True),
+                                reps=3))
 
 
 # --------------------------------------------------------------------------
@@ -653,6 +676,48 @@ def _compiles(gxx: str, source: str, args) -> bool:
                                os.path.join(tmp, "probe")],
                               capture_output=True, text=True, timeout=120)
         return proc.returncode == 0
+
+
+# the Python packages the LMDB path (msgpack, pandas, lmdb; the port needs
+# none of them) and the evaluation tools (matplotlib, sklearn) could use,
+# and an MJPG VideoWriter -> VideoCapture round trip (the IIC path's decode)
+HOST_PROBE = r"""
+import importlib, json, os, tempfile
+out = {}
+for name in ("msgpack", "pandas", "lmdb", "matplotlib", "sklearn"):
+    try:
+        mod = importlib.import_module(name)
+        v = getattr(mod, "__version__", None) or getattr(mod, "version", "?")
+        out[name] = ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+    except ImportError:
+        out[name] = None
+try:
+    import cv2
+    import numpy as np
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "probe.avi")
+        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25.0,
+                            (64, 48))
+        frames = [np.full((48, 64, 3), 40 * i, np.uint8) for i in range(5)]
+        for f in frames:
+            w.write(f)
+        w.release()
+        cap = cv2.VideoCapture(path)
+        got = []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            got.append(f)
+        cap.release()
+    out["cv2_mjpg_round_trip"] = {
+        "frames": len(got), "max_abs_err": max(
+            (int(np.abs(g.astype(int) - f).max()) for g, f in
+             zip(got, frames)), default=None)}
+except Exception as e:
+    out["cv2_mjpg_round_trip"] = repr(e)
+print(json.dumps(out))
+"""
 
 
 def phase_host():
@@ -675,6 +740,13 @@ def phase_host():
     cv2 = subprocess.run([sys.executable, "-c",
                           "import cv2; print(cv2.__version__)"],
                          capture_output=True, text=True, timeout=120)
+    probe = subprocess.run([sys.executable, "-c", HOST_PROBE],
+                           capture_output=True, text=True, timeout=300)
+    check(probe.returncode == 0, f"host probe: {probe.stderr[-2000:]}")
+    libs = json.loads(probe.stdout.strip().splitlines()[-1])
+    rt = libs["cv2_mjpg_round_trip"]
+    check(isinstance(rt, dict) and rt["frames"] == 5,
+          f"cv2 writes and reads back an MJPG video ({rt})")
     t0 = time.perf_counter()
     built = native_loader.available()
     build_s = time.perf_counter() - t0
@@ -688,7 +760,7 @@ def phase_host():
          native_library=(os.path.relpath(native_loader.LIB_PATH, ROOT)
                          if built else None),
          native_build_log=None if built else native_loader.BUILD_LOG[-400:],
-         decoder=backend)
+         decoder=backend, **libs)
     if built:
         print("decoder: native", flush=True)
     else:
@@ -2292,16 +2364,19 @@ def classify_batch(rng, b, n_cls=CLS_CLASSES, structured=False):
 
 
 def clip_flop(net) -> dict:
-    """FLOPs of one CLS_T x CLS_S x CLS_S clip's forward (``module_flop``)
-    and of the stem's first convolution, whose input needs no
-    gradient."""
+    """FLOPs of one CLS_T x CLS_S x CLS_S clip's forward (the port's
+    ``utils/flops.py::model_flops_per_clip``) and of the stem's first
+    convolution, whose input needs no gradient."""
     import torch
+
+    from video_similarity_search_tpu_torch.utils.flops import \
+        model_flops_per_clip
 
     _, model, _, _, _ = classifier(net, "all", "cuda")
     model.eval()
-    flop = module_flop(model, torch.zeros((1, CLS_T, CLS_S, CLS_S, 3),
-                                          device="cuda"),
-                       [model.backbone.Conv_1a.conv1])
+    flop = model_flops_per_clip(
+        model, torch.zeros((1, CLS_T, CLS_S, CLS_S, 3), device="cuda"),
+        [model.backbone.Conv_1a.conv1])
     return {"forward": flop["forward"], "stem": flop["first"]}
 
 
@@ -2590,6 +2665,8 @@ def phase_classify_step(smi: str):
     bytes of the clips, the weights and the momentum."""
     import torch
 
+    from video_similarity_search_tpu_torch.utils.flops import peaks_for
+
     _, peaks = peaks_for(smi)
     rng = np.random.default_rng(SEED)
     host = classify_batch(rng, CLS_BATCH)
@@ -2740,6 +2817,549 @@ def phase_classify_cli(step_clips_per_s: dict):
 
 
 # --------------------------------------------------------------------------
+# the eighth slice: CoCLR's LMDB classification path with the CoCLR clip
+# transforms, and IIC clip retrieval
+
+# the LMDB store: ClassInd.txt lists UCF-101's 101 classes; videos in the
+# first LMDB_USED, each class tinted its colour (a signal the probe can
+# learn in two steps). 4 train videos a class are 2 batches of 32; of the
+# 2 test videos a class, validation keeps pandas' 30% (10 videos). The
+# probe steps at lr 0.1 (the CLI's --lr; its default 1e-3 moves no
+# prediction in two steps), so validation top-1 rises above 0 and the CLI
+# writes model_best.pth.tar
+LMDB_USED = 16
+# 192 training videos: 6 batches of 32, so an epoch's clips/s (its first
+# step left out) spans 5 steps
+LMDB_TRAIN_PER_CLASS, LMDB_TEST_PER_CLASS = 12, 2
+LMDB_FRAMES = (48, 64)  # each video's length is drawn in [48, 64]
+LMDB_HW = (240, 320)
+LMDB_CLI_LR = 0.1
+LMDB_CPU_CLIPS = 2  # the transforms held against the CPU on these clips
+COCLR_OUT = 112  # the controllers' crop from the 128 x 128 clips
+
+
+def _jpeg_frames(job) -> list:
+    """One synthetic video as JPEG bytes (``_write_video``'s drifting
+    class-coloured pattern, tinted)."""
+    import io
+
+    from PIL import Image
+
+    n, (h, w), color, freq, phase, speed = job
+    yy, xx = np.mgrid[0:h, 0:w + speed * n].astype(np.float32)
+    wave = np.sin(xx * freq + phase) + 0.5 * np.cos(yy * freq * 1.7 + phase)
+    canvas = np.clip(128 + 80 * wave[..., None] * color
+                     + 150 * (color - 0.6), 0, 255).astype(np.uint8)
+    out = []
+    for f in range(n):
+        buf = io.BytesIO()
+        Image.fromarray(np.ascontiguousarray(
+            canvas[:, speed * f:speed * f + w])).save(buf, format="JPEG")
+        out.append(buf.getvalue())
+    return out
+
+
+def make_lmdb_store(root: str):
+    """A seeded CoCLR store under ``root``: ClassInd.txt, train_split01.csv
+    and test_split01.csv (tests/test_lmdb.py's layout: vpath, vlen) and
+    ucf101_frame.lmdb, each video a msgpack array of 320x240 JPEGs, written
+    with the port's ``write_lmdb``. Reused when ``root`` holds the same
+    store. -> (root, db path, seconds spent writing)."""
+    import msgpack
+
+    from video_similarity_search_tpu_torch.data.lmdb_lite import write_lmdb
+
+    db = os.path.join(root, "ucf101_frame.lmdb")
+    marker = os.path.join(root, "done.json")
+    spec = json.dumps([LMDB_USED, LMDB_TRAIN_PER_CLASS, LMDB_TEST_PER_CLASS,
+                       LMDB_FRAMES, LMDB_HW, SEED])
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == spec:
+                return root, db, 0.0
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    rng = np.random.default_rng(SEED)
+    classes = [f"class{c:03d}" for c in range(CLS_CLASSES)]
+    with open(os.path.join(root, "ClassInd.txt"), "w") as f:
+        f.write("\n".join(f"{i + 1},{c}" for i, c in enumerate(classes)))
+    names, jobs, rows = [], [], {"train": [], "test": []}
+    for c in classes[:LMDB_USED]:
+        color = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        freq = float(rng.uniform(0.01, 0.05))
+        for v in range(LMDB_TRAIN_PER_CLASS + LMDB_TEST_PER_CLASS):
+            split = "train" if v < LMDB_TRAIN_PER_CLASS else "test"
+            n = int(rng.integers(LMDB_FRAMES[0], LMDB_FRAMES[1] + 1))
+            names.append(f"{c}/v_{c}_g{v:02d}_c01")
+            jobs.append((n, LMDB_HW, color, freq,
+                         float(rng.uniform(0, 6.28)),
+                         int(rng.integers(1, 5))))
+            rows[split].append(f"/data/{names[-1]}/frames,{n}")
+    for split, lines in rows.items():
+        with open(os.path.join(root, f"{split}_split01.csv"), "w") as f:
+            f.write("\n".join(lines))
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        videos = list(pool.map(_jpeg_frames, jobs))
+    mapping = {b"__len__": msgpack.packb(len(names)),
+               b"__keys__": msgpack.packb(
+                   [f"{i:09d}".encode() for i in range(len(names))]),
+               b"__order__": msgpack.packb([n.encode() for n in names])}
+    for i, frames in enumerate(videos):
+        mapping[f"{i:09d}".encode()] = msgpack.packb(frames)
+    write_lmdb(db, mapping)
+    with open(marker, "w") as f:
+        f.write(spec)
+    return root, db, time.perf_counter() - t0
+
+
+def lmdb_items_direct(root: str, db: str) -> dict:
+    """One item of each mode (train, val, test) of the port's UCF101LMDB
+    and the train adapter's resized item, each byte-equal to the same
+    frames read straight from the file: the key from ``__order__``, the
+    value unframed by msgpack, the JPEGs decoded by PIL, the frame indices
+    drawn from a fresh generator of the dataset's seed."""
+    import io
+
+    import msgpack
+    from PIL import Image
+
+    from video_similarity_search_tpu_torch.data import lmdb_data
+    from video_similarity_search_tpu_torch.data.lmdb_lite import LiteEnv
+
+    out = {}
+    with LiteEnv(db) as env:
+        order = msgpack.unpackb(env.get(b"__order__"))
+        for mode in ("train", "val", "test"):
+            ds = lmdb_data.get_lmdb_dataset("ucf101", root, db, mode=mode,
+                                            num_frames=CLS_T, seed=SEED)
+            row = ds.video_subset[0]
+            item = ds[0]
+            idx = lmdb_data.frame_sampler(row["vlen"], CLS_T, 1, mode,
+                                          rng=np.random.default_rng(SEED))
+            raw = msgpack.unpackb(env.get(
+                f"{order.index(row['vname'].encode()):09d}".encode()))
+            frames = [Image.open(io.BytesIO(raw[int(i)])).convert("RGB")
+                      for i in idx]
+            direct = np.stack([np.asarray(f) for f in frames])
+            check(item["clips"].shape == (len(idx),) + LMDB_HW + (3,)
+                  and np.array_equal(item["clips"], direct)
+                  and item["label"] == ds.class_to_idx[row["vlabel"]],
+                  f"LMDB {mode} item byte-equal to a direct read")
+            out[mode] = {"videos": len(ds), "frames": len(idx)}
+            if mode == "train":
+                ds.rng = np.random.default_rng(SEED)
+                buf = 2 * CLS_S
+                got = lmdb_data.LMDBClipAdapter(ds, buf, CLS_T)[0]["clip"]
+                want = np.stack([np.asarray(f.resize((buf, buf)))
+                                 for f in frames])
+                check(np.array_equal(got, want), "LMDB train adapter item "
+                      "byte-equal to a direct PIL resize")
+    return out
+
+
+def coclr_transforms(host_clips: np.ndarray) -> list:
+    """Each CoCLR transform on the card at CLS_BATCH clips of
+    CLS_T x CLS_S x CLS_S (uint8, or float in [0, 1] for the rotation):
+    ms (median of 5, CUDA events), and the first LMDB_CPU_CLIPS clips held
+    to the CPU from the same draws, made on the card and injected."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data import augment as ta
+
+    x = torch.from_numpy(host_clips).cuda()
+    x2 = torch.roll(x, 1, dims=0)
+    xf = x.float() / 255
+    b, t, n = x.shape[0], x.shape[1], LMDB_CPU_CLIPS
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def params():
+        return ta.draw_augment_params(gen, b, pre_cropped=False,
+                                      in_hw=(CLS_S, CLS_S))
+
+    def head(v):  # the first n clips' draws (or inputs), on the CPU
+        if isinstance(v, dict):
+            return {k: head(w) for k, w in v.items()}
+        if isinstance(v, (tuple, list)):
+            return type(v)(head(w) for w in v)
+        return v[:n].cpu() if torch.is_tensor(v) else v
+
+    blocks = -(-t // 4)
+    p1, p2, p3, p4 = params(), params(), params(), params()
+    cases = [  # name, fn, its card arguments, tolerance (max abs)
+        ("pad_clip", lambda c: ta.pad_clip(c, 8), (x,), 0.0),
+        ("scale_clip uint8 to 112", lambda c: ta.scale_clip(c, 112), (x,),
+         1.0),
+        ("scale_clip float to 160", lambda c: ta.scale_clip(c, 160),
+         (x.float(),), 1e-3),
+        ("random_gray_clip per clip", lambda c, a, k: ta.random_gray_clip(
+            c, 0.5, True, 0, apply=a, channel=k),
+         (x, u(b) < 0.5, (u(b) * 3).long()), 0.0),
+        ("random_gray_clip per frame", lambda c, a, k: ta.random_gray_clip(
+            c, 0.5, False, 0, apply=a.reshape(-1), channel=k.reshape(-1)),
+         (x, u(b, t) < 0.5, (u(b, t) * 3).long()), 0.0),
+        ("random_gray_clip per 4 frames",
+         lambda c, a, k: ta.random_gray_clip(
+             c, 0.5, True, 4, apply=a.reshape(-1), channel=k.reshape(-1)),
+         (x, u(b, blocks) < 0.5, (u(b, blocks) * 3).long()), 0.0),
+        ("center_crop_normalize",
+         lambda c: ta.center_crop_normalize(c, COCLR_OUT), (x,), 1e-6),
+        ("rotate_clip", lambda c, a, d: ta.rotate_clip(c, 15.0, angles=a,
+                                                        apply=d),
+         (xf, 30 * u(b) - 15, u(b) < 0.9), 1e-5),
+        ("two_clip_transform", lambda c, c2, pa, pb, ua, ub:
+         ta.two_clip_transform(c, c2, COCLR_OUT, p=0.5, params=(pa, pb),
+                               use_base=(ua, ub)),
+         (x, x2, p1, p2, u(b) < 0.5, u(b) < 0.5), 1e-4),
+        ("one_clip_transform", lambda c, c2, pk, bf, pa:
+         ta.one_clip_transform(c, c2, COCLR_OUT, pick1=pk, base_first=bf,
+                               params=pa),
+         (x, x2, u(b) < 0.5, u(b) < 0.5, p3), 1e-4),
+        ("two_crops_transform", lambda c, pa, pb: ta.two_crops_transform(
+            c, COCLR_OUT, params=(pa, pb)), (x, p1, p4), 1e-4),
+        ("transform_controller", lambda c, pa, pb, ch:
+         ta.transform_controller(
+             [lambda: ta.two_crops_transform(c, COCLR_OUT, params=(pa, pb)),
+              lambda: ta.center_crop_normalize(c, COCLR_OUT)],
+             [0.5, 0.5], choice=ch),
+         (x, p1, p4, int(u(1).item() < 0.5)), 1e-4),
+    ]
+    out = []
+    for name, fn, args, tol in cases:
+        card = fn(*args)
+        cpu = fn(*(head(a) for a in args))
+        card, cpu = ((card,), (cpu,)) if torch.is_tensor(card) else (card,
+                                                                    cpu)
+        err = max(float((g[:n].cpu().double() - w.double()).abs().max())
+                  for g, w in zip(card, cpu))
+        check(err <= tol and all(g.shape[0] == b for g in card)
+              and all(bool(torch.isfinite(g.float()).all()) for g in card),
+              f"{name}: the card within {tol} of the CPU ({err})")
+        out.append({"name": name, "ms": time_ms(lambda: fn(*args)),
+                    "max_abs_err_vs_cpu": err, "tolerance": tol,
+                    "out_shape": list(card[0].shape)})
+    return out
+
+
+def lmdb_loader_alone(root: str, yaml: str) -> dict:
+    """The CLI's training loader alone, no step: its config (the YAML, then
+    --seq_len / --img_dim), its 2x buffer and its pinned upload, one epoch.
+    The clips/s runs from the first batch's arrival to the last batch's
+    upload, so it spans every batch but the first."""
+    import torch
+
+    from video_similarity_search_tpu_torch.config import get_cfg
+    from video_similarity_search_tpu_torch.data.lmdb_data import \
+        build_lmdb_loader
+
+    cfg = get_cfg()
+    cfg.merge_from_file(yaml)
+    cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE = CLS_T, CLS_S
+    loader, _ = build_lmdb_loader("ucf101", root, "train", cfg, CLS_BATCH,
+                                  device="cuda")
+    t0, clips, batches = None, 0, 0
+    for batch in loader:
+        batches += 1
+        if t0 is None:
+            t0 = time.perf_counter()
+            continue
+        clips += len(batch["target"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return {"batches": batches, "clips_timed": clips, "seconds": dt,
+            "clips_per_s": clips / dt,
+            "consumer_wait_s": [float(w) for w in loader.wait_s]}
+
+
+def phase_lmdb(step_clips_per_s: dict):
+    """CoCLR's classification CLI on an LMDB store at its defaults (S3D,
+    32 clips of 32x128x128, 101 classes, float32): the store made with the
+    port's writer; one item of each mode held to a direct read; the CLI's
+    training loader timed alone; then ``coclr_classify.main`` in this
+    process, the entry point of ``python -m ...coclr_classify``: ``--lmdb_root
+    ... --train_what last`` for an epoch (the 2x buffer cropped on the card
+    by ``train_augment``, the batches uploaded through the pinned ring), the
+    ten-crop test and ``--retrieval`` on its model_best.pth.tar (the
+    epoch's weights where validation scored 0 and it kept none), each run's
+    nn1_cosine launches counted from 0 just before it (all 0); the
+    loader-fed clips/s beside classify_step's; each CoCLR transform timed
+    and held to the CPU. -> each run's launches."""
+    from video_similarity_search_tpu_torch.cli import coclr_classify
+    from video_similarity_search_tpu_torch.ops import fused_knn
+
+    root, db, write_s = make_lmdb_store(os.path.join(OUT, "lmdb_store"))
+    items = lmdb_items_direct(root, db)
+    work = os.path.join(OUT, "lmdb_cli")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    yaml = os.path.join(work, "loader.yaml")
+    with open(yaml, "w") as f:
+        f.write(f"TRAIN:\n  NUM_DATA_WORKERS: {os.cpu_count()}\n"
+                "TPU:\n  PREFETCH_DEVICE_PUT: True\n")
+    loader = lmdb_loader_alone(root, yaml)
+    argv = ["--lmdb_root", root, "--cfg", yaml, "--device", "cuda",
+            "--seq_len", str(CLS_T), "--img_dim", str(CLS_S),
+            "--num_class", str(CLS_CLASSES), "--batch_size", str(CLS_BATCH),
+            "--train_what", "last", "--lr", str(LMDB_CLI_LR)]
+    launches, walls, returned = {}, {}, {}
+
+    def cli(a):
+        returned["main"] = coclr_classify.main(a)
+
+    def counted(what, extra):
+        fused_knn.LAUNCHES = 0
+        stdout, walls[what] = run_main(cli, argv + extra, f"LMDB {what}")
+        launches[what] = fused_knn.LAUNCHES
+        return stdout
+
+    out = os.path.join(work, "last")
+    stdout = counted("train", ["--epochs", "1", "--output", out])
+    model = returned["main"][0]  # the trained (model, optimizer)
+    rows = re.findall(r"epoch 0: lr \S+ loss (\S+) top1 (\S+) "
+                      r"\(([\d.]+) clips/s\)", stdout)
+    val = re.findall(r"val top1 (\S+)", stdout)
+    check(len(rows) == 1 and len(val) == 1 and np.isfinite(float(rows[0][0])),
+          f"LMDB CLI: one epoch line and one validation ({stdout[-500:]})")
+    # the CLI writes model_best.pth.tar only when validation beats 0, as
+    # the JAX CLI does; after one epoch the eval-mode BatchNorm's running
+    # statistics are still mostly at init, so the probe may score 0
+    best = os.path.join(out, "tnet_checkpoints", "s3d", "model_best.pth.tar")
+    check(os.path.exists(best) == (float(val[0]) > 0), "LMDB CLI: "
+          f"model_best.pth.tar written iff val top1 > 0 (val top1 {val})")
+    if not os.path.exists(best):  # the epoch's weights, as a checkpoint
+        import torch
+
+        best = os.path.join(work, "epoch_weights.pth.tar")
+        torch.save({"state_dict": {k: v.detach().cpu() for k, v in
+                                   model.state_dict().items()},
+                    "epoch": 1}, best)
+    n_val = items["val"]["videos"]
+    t_out = counted("ten_crop", ["--checkpoint_path", best, "--output",
+                                 os.path.join(work, "test")])
+    m = re.search(r"10-crop test: top1 (\S+) top5 (\S+) \((\d+) videos\)",
+                  t_out)
+    check(m is not None and int(m.group(3)) == n_val
+          and 0 <= float(m.group(1)) <= float(m.group(2)) <= 1,
+          f"LMDB ten-crop test over {n_val} videos ({m})")
+    r_out = counted("retrieval", ["--checkpoint_path", best, "--retrieval",
+                                  "--output", os.path.join(work, "ret")])
+    line = [ln for ln in r_out.splitlines() if ln.startswith("retrieval:")]
+    check(len(line) == 1 and all(f"{k}:" in line[0]
+                                 for k in (1, 5, 10, 20, 50)),
+          f"LMDB retrieval line with top 1/5/10/20/50 ({line})")
+    check(all(n == 0 for n in launches.values()),
+          f"the LMDB path launched nn1_cosine {launches} times")
+    rng = np.random.default_rng(SEED)
+    transforms = coclr_transforms(rng.integers(
+        0, 256, (CLS_BATCH, CLS_T, CLS_S, CLS_S, 3), np.uint8))
+    emit("lmdb", command="coclr_classify.main(['--lmdb_root', ...])",
+         args=argv[2:], store={
+             "classes_listed": CLS_CLASSES, "classes_with_videos": LMDB_USED,
+             "frames": list(LMDB_FRAMES), "frame_hw": list(LMDB_HW),
+             "write_s": write_s, "bytes": os.path.getsize(db),
+             "modes": items},
+         loader_alone=loader,
+         train={"loss": float(rows[0][0]), "top1": float(rows[0][1]),
+                "val_top1": float(val[0]),
+                "loader_fed_clips_per_s": float(rows[0][2]),
+                "steps_timed": items["train"]["videos"] // CLS_BATCH - 1},
+         classify_step_fp32_last_clips_per_s=step_clips_per_s.get("last"),
+         ten_crop={"top1": float(m.group(1)), "top5": float(m.group(2)),
+                   "videos": n_val, "checkpoint": os.path.basename(best)},
+         retrieval=line[0], wall_s=walls, transforms=transforms,
+         nn1_cosine_launches=launches)
+    return launches
+
+
+IIC_CLASSES = 10
+IIC_TRAIN_PER_CLASS, IIC_TEST_PER_CLASS = 3, 1
+IIC_FRAMES = (48, 80)  # each video's length is drawn in [48, 80]
+IIC_SAMPLE_NUM = 10  # clips a video (the CLI's --sample_num)
+
+
+def _write_avi(job) -> None:
+    """One synthetic MJPG .avi (``_jpeg_frames``' pattern, BGR)."""
+    import cv2
+
+    path, n, (h, w), color, freq, phase, speed = job
+    yy, xx = np.mgrid[0:h, 0:w + speed * n].astype(np.float32)
+    wave = np.sin(xx * freq + phase) + 0.5 * np.cos(yy * freq * 1.7 + phase)
+    canvas = np.clip(128 + 80 * wave[..., None] * color
+                     + 150 * (color - 0.6), 0, 255).astype(np.uint8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 25.0,
+                             (w, h))
+    for f in range(n):
+        writer.write(np.ascontiguousarray(
+            canvas[:, speed * f:speed * f + w, ::-1]))
+    writer.release()
+
+
+def make_iic_videos(root: str):
+    """Seeded MJPG videos at 320x240 in the UCF layout of the IIC datasets
+    (split/classInd.txt, split/trainlist01.txt, split/testlist01.txt,
+    videos/<class>/<video>.avi), reused when ``root`` holds the same set.
+    -> (root, seconds spent writing)."""
+    marker = os.path.join(root, "done.json")
+    spec = json.dumps([IIC_CLASSES, IIC_TRAIN_PER_CLASS, IIC_TEST_PER_CLASS,
+                       IIC_FRAMES, LMDB_HW, SEED])
+    if os.path.exists(marker):
+        with open(marker) as f:
+            if f.read() == spec:
+                return root, 0.0
+    t0 = time.perf_counter()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, "split"))
+    rng = np.random.default_rng(SEED + 1)
+    classes = [f"Class{c:02d}" for c in range(IIC_CLASSES)]
+    lists, jobs = {"train": [], "test": []}, []
+    for c in classes:
+        color = rng.uniform(0.2, 1.0, 3).astype(np.float32)
+        freq = float(rng.uniform(0.01, 0.05))
+        for v in range(IIC_TRAIN_PER_CLASS + IIC_TEST_PER_CLASS):
+            rel = f"{c}/v_{c}_g{v:02d}_c01.avi"
+            split = "train" if v < IIC_TRAIN_PER_CLASS else "test"
+            lists[split].append(rel)
+            jobs.append((os.path.join(root, "videos", rel),
+                         int(rng.integers(IIC_FRAMES[0], IIC_FRAMES[1] + 1)),
+                         LMDB_HW, color, freq, float(rng.uniform(0, 6.28)),
+                         int(rng.integers(1, 5))))
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(_write_avi, jobs))
+    with open(os.path.join(root, "split", "classInd.txt"), "w") as f:
+        f.write("\n".join(f"{i + 1} {c}" for i, c in enumerate(classes)))
+    with open(os.path.join(root, "split", "trainlist01.txt"), "w") as f:
+        f.write("\n".join(f"{r} {classes.index(r.split('/')[0]) + 1}"
+                          for r in lists["train"]))
+    with open(os.path.join(root, "split", "testlist01.txt"), "w") as f:
+        f.write("\n".join(lists["test"]))
+    with open(marker, "w") as f:
+        f.write(spec)
+    return root, time.perf_counter() - t0
+
+
+def phase_iic(smi: str):
+    """IIC clip retrieval at the UCF config's width (R3D-18, 10 clips of
+    16x128x128 a video, bf16): seeded MJPG videos in the UCF layout;
+    ``iic_retrieve_clips.main`` in this process (the entry point of
+    ``python -m ...iic_retrieve_clips``) on a .pth.tar of the smoke's
+    seeded R3D-18, its nn1_cosine launches counted from 0 just before it
+    (0), its topk_correct.json and its features held to this script's own
+    pass on the card; decode ms a video, the feature pass's clips/s and its
+    share of the bf16 bound from the port's ``resnet3d_flops_per_clip``
+    (held equal to the hooks' count). -> the CLI's launches."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cli import iic_retrieve_clips
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+    from video_similarity_search_tpu_torch.data.iic_data import \
+        UCF101ClipRetrievalDataset
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.ops import fused_knn
+    from video_similarity_search_tpu_torch.train.checkpoint import (
+        load_encoder_state, load_torch_checkpoint)
+    from video_similarity_search_tpu_torch.train.steps import make_embed_step
+    from video_similarity_search_tpu_torch.utils.flops import (
+        model_flops_per_clip, peaks_for, resnet3d_flops_per_clip)
+
+    root, write_s = make_iic_videos(os.path.join(OUT, "iic_videos"))
+    work = os.path.join(OUT, "iic")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = load_cfg(UCF_YAML, [])
+    t, s, r = (cfg.DATA.SAMPLE_DURATION, cfg.DATA.SAMPLE_SIZE, cfg.RESNET)
+    torch.manual_seed(SEED)
+    model = model_selector(cfg)
+    ckpt = os.path.join(work, "r3d18_seed0.pth.tar")
+    torch.save({"state_dict": {"module." + k: v.detach().cpu()
+                               for k, v in model.state_dict().items()},
+                "epoch": 0}, ckpt)
+    feature_dir = os.path.join(work, "features")
+    fused_knn.LAUNCHES = 0
+    stdout, wall = run_main(iic_retrieve_clips.main, [
+        "--cfg", UCF_YAML, "--dataset", "ucf101", "--root_dir", root,
+        "--checkpoint_path", ckpt, "--feature_dir", feature_dir,
+        "--clip_len", str(t), "--sample_num", str(IIC_SAMPLE_NUM),
+        "--device", "cuda"], "IIC CLI")
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"the IIC path launched nn1_cosine {launches} times")
+    with open(os.path.join(feature_dir, "topk_correct.json")) as f:
+        topk = json.load(f)
+    check(sorted(topk) == ["1", "10", "20", "5", "50"]
+          and all(0 <= v <= 1 for v in topk.values()),
+          f"IIC topk_correct.json ({topk})")
+
+    # the same weights and videos through this script's own loop
+    model = model_selector(cfg)
+    load_encoder_state(model, load_torch_checkpoint(ckpt)["torch_state_dict"],
+                       verbose=False)
+    embed = make_embed_step(cfg, model, device="cuda")
+    sample_num = IIC_SAMPLE_NUM
+    decode_ms, embed_s, n_clips, max_cos = [], 0.0, 0, {}
+    for split in ("train", "test"):
+        ds = UCF101ClipRetrievalDataset(root, t, sample_num=sample_num,
+                                        train=split == "train",
+                                        sample_size=s)
+        items = []
+        for i in range(len(ds)):
+            t0 = time.perf_counter()
+            items.append(ds[i]["clips"])
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        feats = []
+        embed(normalize_only(torch.from_numpy(items[0]).cuda()))  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for clips in items:
+            feats.append(embed(normalize_only(torch.from_numpy(clips)
+                                              .cuda())))
+        torch.cuda.synchronize()
+        embed_s += time.perf_counter() - t0
+        n_clips += sum(len(c) for c in items)
+        mine = torch.stack(feats).cpu().numpy()
+        cli = np.load(os.path.join(feature_dir, f"{split}_features.npy"))
+        check(cli.shape == mine.shape == (len(ds), sample_num,
+                                          r.OUT_DIM)
+              and bool(np.isfinite(cli).all()),
+              f"IIC {split} features: shape {cli.shape} and finite")
+        a = cli / np.linalg.norm(cli, axis=-1, keepdims=True)
+        b = mine / np.linalg.norm(mine, axis=-1, keepdims=True)
+        max_cos[split] = float(np.max(1.0 - np.sum(a * b, axis=-1)))
+        # same weights, inputs and path, one process
+        check(max_cos[split] < 1e-5, f"IIC CLI {split} features vs "
+              f"in-process: {max_cos[split]}")
+    flops = resnet3d_flops_per_clip(
+        r.MODEL_DEPTH, t=t, size=s, conv1_t_size=r.CONV1_T_SIZE,
+        conv1_t_stride=r.CONV1_T_STRIDE, no_max_pool=r.NO_MAX_POOl,
+        widen_factor=r.WIDEN_FACTOR, hidden_layer=r.HIDDEN_LAYER,
+        out_dim=r.OUT_DIM)
+    hooks = model_flops_per_clip(
+        model, torch.zeros((1, t, s, s, 3), device="cuda"))["forward"]
+    check(hooks == flops, f"R3D-18 FLOPs: the formula's {flops} equals the "
+          f"hooks' {hooks}")
+    clips_per_s = n_clips / embed_s
+    peak = peaks_for(smi)[1][3]  # bf16 dense, the card's form factor
+    emit("iic", command="iic_retrieve_clips.main(['--dataset', 'ucf101', "
+         "...])", wall_s=wall,
+         videos={"classes": IIC_CLASSES, "train": IIC_CLASSES
+                 * IIC_TRAIN_PER_CLASS, "test": IIC_CLASSES
+                 * IIC_TEST_PER_CLASS, "frames": list(IIC_FRAMES),
+                 "frame_hw": list(LMDB_HW), "write_s": write_s},
+         clip=[t, s, s, 3], clips_per_video=sample_num,
+         dtype=cfg.TPU.COMPUTE_DTYPE, topk_correct=topk,
+         max_cos_dist_vs_in_process=max_cos,
+         decode_ms_per_video=float(np.median(decode_ms)),
+         decode_ms_all=decode_ms, feature_clips_per_s=clips_per_s,
+         gflop_per_clip=flops / 1e9, bf16_peak_tflops=peak / 1e12,
+         bound_share=clips_per_s * flops / peak,
+         stdout_tail=stdout.strip().splitlines()[-3:],
+         nn1_cosine_launches=launches, device=smi)
+    return launches
+
+
+# --------------------------------------------------------------------------
 # the sixth slice: SlowFast at get_cfg()'s defaults, its checkpoint import,
 # and the MoCo InfoNCE / UberNCE pretrain
 
@@ -2835,31 +3455,6 @@ def slowfast_checkpoints(model):
     return out
 
 
-def module_flop(model, x, firsts) -> dict:
-    """FLOPs of ``model``'s forward on ``x``: 2 x the multiply-adds of every
-    convolution and linear layer (forward hooks; BN, pooling and
-    elementwise work left out), and of the ``firsts`` layers, whose inputs
-    need no gradient."""
-    import torch
-
-    count = collections.Counter()
-
-    def hook(mod, inp, out):
-        per_out = (mod.weight[0].numel() if isinstance(mod, torch.nn.Conv3d)
-                   else mod.in_features)
-        count["forward"] += 2 * out.numel() * per_out
-        if any(mod is f for f in firsts):
-            count["first"] += 2 * out.numel() * per_out
-
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
-             if isinstance(m, (torch.nn.Conv3d, torch.nn.Linear))]
-    with torch.no_grad():
-        model(x)
-    for h in hooks:
-        h.remove()
-    return dict(count)
-
-
 def phase_slowfast(smi: str):
     """SlowFast at get_cfg()'s defaults, unchanged (SlowFast-50, ALPHA 4,
     BETA_INV 8, fusion ratio 2 and kernel 7, 8x224x224 clips, the triplet
@@ -2879,6 +3474,8 @@ def phase_slowfast(smi: str):
         multipathway_input
     from video_similarity_search_tpu_torch.ops import fused_knn
     from video_similarity_search_tpu_torch.train.steps import make_embed_step
+    from video_similarity_search_tpu_torch.utils.flops import (
+        model_flops_per_clip, peaks_for)
 
     _, peaks = peaks_for(smi)
     cfg = load_cfg(None, ["OUTPUT_PATH", os.path.join(OUT, "slowfast")])
@@ -2891,7 +3488,7 @@ def phase_slowfast(smi: str):
     host = triplet_batch(rng, b, t, s, n_cls=8)
     views = train_views(cfg)
     model.cuda().eval()
-    flop = module_flop(model, multipathway_input(
+    flop = model_flops_per_clip(model, multipathway_input(
         torch.zeros((1, t, s, s, 3), device="cuda"), cfg.SLOWFAST.ALPHA),
         [model.s1.pathway0_stem.conv, model.s1.pathway1_stem.conv])
     per_clip = 3 * flop["forward"] - flop["first"]  # no input gradient
@@ -3663,6 +4260,8 @@ def main() -> int:
     check(fused_knn.LAUNCHES == 0, "the classifier step launches no 1-NN "
           "kernel")
     run("classify_cli", phase_classify_cli, cls_rates)
+    lmdb_launches = run("lmdb", phase_lmdb, cls_rates)
+    iic_launches = run("iic", phase_iic, smi)
     run("slowfast", phase_slowfast, smi)
     run("moco", phase_moco, paths)
     dist_launches = run("dist", phase_dist, smi, paths)
@@ -3688,7 +4287,9 @@ def main() -> int:
         "tflops_fp32_accurate": main_shape["tflops_fp32_accurate"],
         "sass": key_opcodes(sass["nn1_cosine"]),
         "shape": main_shape["shape"], "shapes": shapes,
-        "dist_launches_per_rank": dist_launches}]}), flush=True)
+        "dist_launches_per_rank": dist_launches,
+        "lmdb_launches": lmdb_launches, "iic_launches": iic_launches}]}),
+        flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -499,5 +499,10 @@ def test_cli_computes_in_float32(ucf, tmp_path, monkeypatch):
 
 
 def test_cli_lmdb_root_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="LMDB stores"):
-        t_cli.main(["--lmdb_root", str(tmp_path), "--device", "cpu"])
+    """``--lmdb_root`` reads the store: a root without its
+    ``ucf101_frame.lmdb`` raises FileNotFoundError naming it (the LMDB
+    path runs; tests/test_torch_port_lmdb.py trains and tests through
+    it)."""
+    with pytest.raises(FileNotFoundError, match="ucf101_frame.lmdb"):
+        t_cli.main(["--lmdb_root", str(tmp_path), "--device", "cpu",
+                    "--epochs", "1", "--output", str(tmp_path / "out")])

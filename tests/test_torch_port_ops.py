@@ -92,9 +92,22 @@ def test_topk_ties_go_to_lower_index_like_lax_top_k():
 
 
 def test_topk_approx_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpd.topk_neighbors(_t(_rand(0, 3, 4)), _t(_rand(1, 5, 4)), 2,
-                           approx=True)
+    """``approx=True`` (the TPU's ``approx_min_k``) is not ported as an
+    approximation: it returns the exact top-k, equal to JAX's
+    ``approx=True`` on the CPU, where XLA lowers ``approx_min_k`` to an
+    exact top-k."""
+    q, bank = _rand(8, 64, 16), _rand(9, 500, 16)
+    for k, exclude_self in ((50, False), (7, True)):
+        b = q if exclude_self else bank
+        ji, jv = jpd.topk_neighbors(jnp.asarray(q), jnp.asarray(b), k,
+                                    exclude_self=exclude_self, approx=True)
+        ti, tv = tpd.topk_neighbors(_t(q), _t(b), k,
+                                    exclude_self=exclude_self, approx=True)
+        ei, ev = tpd.topk_neighbors(_t(q), _t(b), k,
+                                    exclude_self=exclude_self)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL)
+        assert torch.equal(ti, ei) and torch.equal(tv, ev)
 
 
 @pytest.mark.parametrize("case", ["self", "cross", "tie"])

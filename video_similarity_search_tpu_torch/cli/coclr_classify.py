@@ -6,9 +6,12 @@ package's ``cli/coclr_classify.py``; reference coclr_classify.py:125-922).
         [--net s3d|s3dg] [--output <dir>] [--device cuda]
     ... --checkpoint_path <model_best.pth.tar> [--retrieval]
 
+    ... --lmdb_root <dir> [--dataset ucf101|hmdb51|k400] ...
+
 The JAX CLI's flags plus ``--device`` (default ``cuda``; without CUDA it
 raises, and ``--device cpu`` runs the plain PyTorch path). Trains the
-``LinearClassifier`` with cross-entropy on the frame-JPEG pipeline, the
+``LinearClassifier`` with cross-entropy on the frame-JPEG pipeline (or,
+with ``--lmdb_root``, on CoCLR's msgpack-in-LMDB stores), the
 ``--train_what`` groups and the step-indexed schedule of
 ``train/state.py``; validates every epoch and writes
 ``<output>/tnet_checkpoints/<net>/model_best.pth.tar`` when validation
@@ -19,9 +22,11 @@ crop) or, with ``--retrieval``, feature retrieval, and exits.
 As in the JAX CLI: ``MODEL.ARCH`` is forced to ``s3d``, the whole path
 runs in float32 (``TPU.COMPUTE_DTYPE`` is forced to it), training on the
 frame path gets no augmentation (the loader's buffer is the crop, so only
-``normalize_only`` runs), and ``--resume`` is parsed and never read.
-``--lmdb_root`` raises ``NotImplementedError`` (ROADMAP.md, queue 1, item
-18a).
+``normalize_only`` runs), and ``--resume`` is parsed and never read. The
+LMDB path (``data/lmdb_data.py``) trains on a ``2 x --img_dim`` buffer
+that ``train_augment`` crops on the device, validates on a buffer of the
+crop, runs the ten-crop test on ``int(1.14 x --img_dim)`` and embeds the
+``train`` and ``test`` stores for ``--retrieval``.
 """
 
 from __future__ import annotations
@@ -29,10 +34,6 @@ from __future__ import annotations
 import argparse
 import os
 from typing import List, Optional
-
-_LMDB = ("--lmdb_root: the LMDB stores are not ported yet (ROADMAP.md, "
-         "queue 1, item 18a)")
-
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser("coclr_classify")
@@ -69,8 +70,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv: Optional[List[str]] = None):
     args = build_parser().parse_args(argv)
-    if args.lmdb_root:
-        raise NotImplementedError(_LMDB)
 
     import numpy as np
     import torch
@@ -78,6 +77,7 @@ def main(argv: Optional[List[str]] = None):
     from ..config import get_cfg
     from ..data import build_data_loader
     from ..data.augment import normalize_only, train_augment
+    from ..data.lmdb_data import build_lmdb_loader
     from ..evaluation.classify import test_10crop, test_retrieval
     from ..models.heads import LinearClassifier
     from ..train.checkpoint import (load_checkpoint, load_torch_checkpoint,
@@ -133,6 +133,17 @@ def main(argv: Optional[List[str]] = None):
         payload = load_checkpoint(args.checkpoint_path)
         if "state_dict" in payload:
             restore_train_state(model, optimizer, schedule, payload)
+        if args.lmdb_root:
+            def lmdb(split, **kw):
+                return build_lmdb_loader(args.dataset, args.lmdb_root, split,
+                                         cfg, args.batch_size, device=dev,
+                                         **kw)[0]
+            if args.retrieval:
+                return test_retrieval(model, cfg, lmdb("train"),
+                                      lmdb("test"), device=dev)
+            return test_10crop(model, cfg, lmdb(
+                "val", buffer_size=int(1.14 * cfg.DATA.SAMPLE_SIZE)),
+                device=dev)
         if args.retrieval:
             train_loader, _ = build_data_loader(
                 "train", cfg, triplets=False, req_train_shuffle=False,
@@ -150,20 +161,28 @@ def main(argv: Optional[List[str]] = None):
         return test_10crop(model, cfg, test_loader, device=dev)
 
     # ---- training loop (reference coclr_classify.py:366-389) -----------
-    if not cfg.DATASET.ANNOTATION_PATH:
+    if not cfg.DATASET.ANNOTATION_PATH and not args.lmdb_root:
         print("no dataset configured (set --annotation_path/--vid_path "
               "or --lmdb_root); exiting after setup")
         return model, None
 
-    cfg.DATA.TEMPORAL_CROP = "random"
-    train_loader, _ = build_data_loader(
-        "train", cfg, triplets=False, req_train_shuffle=True, drop_last=True,
-        batch_size=args.batch_size, device=dev)
-    cfg_val = cfg.clone()
-    cfg_val.DATA.TEMPORAL_CROP = "center"
-    val_loader, _ = build_data_loader(
-        "val", cfg_val, triplets=False, drop_last=False,
-        batch_size=args.batch_size, device=dev)
+    if args.lmdb_root:
+        train_loader, _ = build_lmdb_loader(
+            args.dataset, args.lmdb_root, "train", cfg, args.batch_size,
+            device=dev)
+        val_loader, _ = build_lmdb_loader(
+            args.dataset, args.lmdb_root, "val", cfg, args.batch_size,
+            buffer_size=cfg.DATA.SAMPLE_SIZE, device=dev)
+    else:
+        cfg.DATA.TEMPORAL_CROP = "random"
+        train_loader, _ = build_data_loader(
+            "train", cfg, triplets=False, req_train_shuffle=True,
+            drop_last=True, batch_size=args.batch_size, device=dev)
+        cfg_val = cfg.clone()
+        cfg_val.DATA.TEMPORAL_CROP = "center"
+        val_loader, _ = build_data_loader(
+            "val", cfg_val, triplets=False, drop_last=False,
+            batch_size=args.batch_size, device=dev)
 
     steps_per_epoch = max(len(train_loader), 1)
     lr_schedule = make_lr_schedule(args.lr, args.epochs, args.schedule,

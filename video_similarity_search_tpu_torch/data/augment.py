@@ -16,6 +16,14 @@ the whole clip, the gray conversion is the float ``x @ [0.299, 0.587,
 
 The eval path (``normalize_only``) only scales and normalizes: the host
 already resized and center-cropped.
+
+CoCLR's clip transforms (``pad_clip``, ``scale_clip``,
+``random_gray_clip``, ``center_crop_normalize``, ``rotate_clip`` and the
+``two_clip`` / ``one_clip`` / ``two_crops`` controllers with
+``transform_controller``) take their draws as arguments, or draw them
+from a ``torch.Generator``, in the JAX semantics: ``scale_clip`` resizes
+with Keys' cubic weight matrices, antialiased, and ``rotate_clip``
+samples as ``map_coordinates(order=1, mode="nearest")``.
 """
 
 from __future__ import annotations
@@ -136,14 +144,29 @@ def _per_clip(v: torch.Tensor) -> torch.Tensor:
     return v.reshape(-1, 1, 1, 1, 1)
 
 
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp_min(1.0 - torch.abs(x), 0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic kernel with a = -0.5 on |x|, as jax.image's "cubic"
+    (``_fill_keys_cubic_kernel``); torch's bicubic uses a = -0.75."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, torch.zeros_like(x), out)
+
+
 def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
-                translation: torch.Tensor) -> torch.Tensor:
+                translation: torch.Tensor, kernel=_triangle,
+                inv_scale: torch.Tensor = None) -> torch.Tensor:
     """(B, in, out) resampling weights of ``jax.image.scale_and_translate``
-    with the triangle kernel and antialiasing (jax/_src/image/scale.py,
-    ``compute_weight_mat``), one matrix per clip, in the same float32
-    arithmetic."""
+    with ``kernel`` (the triangle by default) and antialiasing
+    (jax/_src/image/scale.py, ``compute_weight_mat``), one matrix per clip,
+    in the same float32 arithmetic. ``inv_scale``: 1 / scale when the
+    caller has it more exactly than float32 division gives it."""
     dev = scale.device
-    inv_scale = 1.0 / scale
+    if inv_scale is None:
+        inv_scale = 1.0 / scale
     kernel_scale = torch.clamp_min(inv_scale, 1.0)
     out_pos = torch.arange(out_size, dtype=torch.float32, device=dev)
     sample_f = ((out_pos[None, :] + 0.5) * inv_scale[:, None]
@@ -151,7 +174,7 @@ def _weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
     in_pos = torch.arange(in_size, dtype=torch.float32, device=dev)
     x = (torch.abs(sample_f[:, None, :] - in_pos[None, :, None])
          / kernel_scale[:, None, None])
-    weights = torch.clamp_min(1.0 - torch.abs(x), 0.0)
+    weights = kernel(x)
     total = weights.sum(dim=1, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * _F32_EPS,
@@ -318,3 +341,237 @@ def train_augment(clips_u8: torch.Tensor, generator: torch.Generator,
         params = {k: v[rank * b:(rank + 1) * b] for k, v in params.items()}
     return apply_augment(clips_u8, params, out_size, dataset=dataset,
                          pre_cropped=pre_cropped)
+
+
+# --------------------------------------------------------------------------
+# CoCLR clip transforms (the JAX package's data/augment.py:258-443;
+# reference coclr_utils/augmentation.py). Every draw can be injected; one
+# that is not comes from ``generator``, on its device.
+
+def _draw(generator: torch.Generator, shape) -> torch.Tensor:
+    if generator is None:
+        raise ValueError("pass the draws or a torch.Generator to draw them")
+    return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def pad_clip(clips: torch.Tensor, pad: int) -> torch.Tensor:
+    """Padding (reference augmentation.py:16-21, ImageOps.expand border
+    fill 0): zero-pad the spatial dims of (B, T, H, W, C) clips."""
+    return F.pad(clips, (0, 0, pad, pad, pad, pad))
+
+
+def scale_clip(clips: torch.Tensor, size, method: str = "cubic"
+               ) -> torch.Tensor:
+    """Scale (reference augmentation.py:24-45): short-edge resize when
+    ``size`` is an int (no-op if the short edge already matches), exact
+    (h, w) otherwise. ``jax.image.resize(method="cubic")``: Keys' cubic
+    (a = -0.5), antialiased when it shrinks, each dim whose size changes
+    resampled by its weight matrix (hazard H5); "linear" takes the
+    triangle. Integer clips are rounded half to even and clipped to
+    0..255, as the JAX function does."""
+    b, t, h, w, c = clips.shape
+    if isinstance(size, int):
+        if (w <= h and w == size) or (h <= w and h == size):
+            return clips
+        if w < h:
+            ow, oh = size, int(size * h / w)
+        else:
+            oh, ow = size, int(size * w / h)
+    else:
+        oh, ow = size
+    kernel = {"cubic": _keys_cubic, "linear": _triangle}[method]
+    dev = clips.device
+    x = clips.to(torch.float32)
+    zero = torch.zeros(1, device=dev)
+
+    def weights(n_in, n_out):  # scale n_out / n_in, as jax.image.resize
+        scale = n_out / n_in
+        return _weight_mat(n_in, n_out,
+                           torch.tensor([scale], device=dev), zero, kernel,
+                           torch.tensor([1.0 / scale], device=dev))[0]
+
+    if oh != h:
+        x = torch.einsum("bthwc,hy->btywc", x, weights(h, oh))
+    if ow != w:
+        x = torch.einsum("btywc,wx->btyxc", x, weights(w, ow))
+    if not clips.is_floating_point():
+        x = torch.clamp(torch.round(x), 0, 255)
+    return x.to(clips.dtype)
+
+
+def random_gray_clip(clips: torch.Tensor, p: float = 0.5,
+                     consistent: bool = True, seq_len: int = 0, *,
+                     apply: torch.Tensor = None, channel: torch.Tensor = None,
+                     generator: torch.Generator = None) -> torch.Tensor:
+    """RandomGray (reference augmentation.py:182-219): channel SPLITTING,
+    one chosen channel copied to all three, with probability ``p`` per
+    clip (``consistent``), per frame, or per ``seq_len`` block of frames.
+    ``apply`` (bool) and ``channel`` (0..2) hold one draw per clip (B,),
+    per frame (B * T,) or per block (B * ceil(T / seq_len),)."""
+    b, t = clips.shape[0], clips.shape[1]
+    if consistent and seq_len == 0:
+        n = b
+    elif seq_len == 0:
+        n = b * t
+    else:
+        n = b * -(-t // seq_len)
+    if apply is None:
+        apply = _draw(generator, (n,)) < p
+    if channel is None:
+        channel = torch.floor(_draw(generator, (n,)) * 3).long().clamp_max(2)
+    apply, channel = apply.to(clips.device), channel.to(clips.device).long()
+    if seq_len:  # one draw per block, over the block's frames
+        blocks = -(-t // seq_len)
+        apply = apply.reshape(b, blocks).repeat_interleave(seq_len, 1)[:, :t]
+        channel = channel.reshape(b, blocks).repeat_interleave(seq_len,
+                                                               1)[:, :t]
+    if consistent and seq_len == 0:
+        shape = (b, 1, 1, 1, 1)
+    else:
+        shape = (b, t, 1, 1, 1)
+    idx = channel.reshape(shape).expand(*clips.shape[:4], 1)
+    gray = torch.gather(clips, -1, idx).expand_as(clips)
+    return torch.where(apply.reshape(shape), gray, clips)
+
+
+def center_crop_normalize(clips_u8: torch.Tensor, out_size: int,
+                          dataset: str = "ucf101") -> torch.Tensor:
+    """The CoCLR 'null' transform: center crop, scale and normalize
+    (reference augmentation.py, the null transform of TwoClipTransform)."""
+    h, w = clips_u8.shape[2], clips_u8.shape[3]
+    top, left = (h - out_size) // 2, (w - out_size) // 2
+    return normalize_only(
+        clips_u8[:, :, top:top + out_size, left:left + out_size, :],
+        dataset=dataset)
+
+
+def rotate_clip(clips: torch.Tensor, degree: float = 15.0, p: float = 1.0,
+                *, angles: torch.Tensor = None, apply: torch.Tensor = None,
+                generator: torch.Generator = None) -> torch.Tensor:
+    """RandomRotation (reference coclr_utils/augmentation.py:334-347) as
+    the JAX package does it: each clip turned by its angle (degrees,
+    (B,) in [-degree, degree], where ``apply``) about the frame's centre
+    on the fixed canvas, every frame and channel sampled bilinearly at the
+    source coordinates with the edge repeated (``map_coordinates(order=1,
+    mode="nearest")``, the four corners summed in its order). Float clips
+    (B, T, H, W, C) in [0, 1]."""
+    b, t, h, w, c = clips.shape
+    dev = clips.device
+    if angles is None:
+        angles = -degree + 2 * degree * _draw(generator, (b,))
+    if apply is None:
+        apply = _draw(generator, (b,)) < p
+    angles, apply = angles.to(dev, torch.float32), apply.to(dev)
+    theta = torch.where(apply, torch.deg2rad(angles), torch.zeros_like(angles))
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
+                            torch.arange(w, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    cos = torch.cos(theta).reshape(b, 1, 1)
+    sin = torch.sin(theta).reshape(b, 1, 1)
+    src_y = cy + (yy - cy) * cos - (xx - cx) * sin  # (B, H, W)
+    src_x = cx + (yy - cy) * sin + (xx - cx) * cos
+
+    def nodes(coord, size):
+        lower = torch.floor(coord)
+        upper_w = coord - lower
+        index = lower.to(torch.int64)
+        return [(index.clamp(0, size - 1), 1 - upper_w),
+                ((index + 1).clamp(0, size - 1), upper_w)]
+
+    flat = clips.reshape(b, t, h * w, c)
+    out = None
+    for iy, wy in nodes(src_y, h):
+        for ix, wx in nodes(src_x, w):
+            pix = (iy * w + ix).reshape(b, 1, h * w, 1).expand(b, t, h * w, c)
+            term = ((wy * wx).reshape(b, 1, h, w, 1)
+                    * torch.gather(flat, 2, pix).reshape(b, t, h, w, c))
+            out = term if out is None else out + term
+    return out
+
+
+def _use(draw: torch.Tensor, clips: torch.Tensor) -> torch.Tensor:
+    return _per_clip(draw.to(clips.device))
+
+
+def _augment_params(clips_u8, generator):
+    return draw_augment_params(generator, clips_u8.shape[0],
+                               pre_cropped=False,
+                               in_hw=tuple(clips_u8.shape[2:4]))
+
+
+def two_clip_transform(clip1_u8: torch.Tensor, clip2_u8: torch.Tensor,
+                       out_size: int, dataset: str = "ucf101",
+                       p: float = 0.3, *, params=None, use_base=None,
+                       generator: torch.Generator = None):
+    """TwoClipTransform (reference augmentation.py:383-408): each clip
+    independently gets the base augmentation (``train_augment``'s chain,
+    with its crop) with probability ``p``, else the null (center crop and
+    normalize). ``params``: the two clips' ``draw_augment_params``;
+    ``use_base``: two (B,) bool masks."""
+    if params is None:
+        params = tuple(_augment_params(c, generator)
+                       for c in (clip1_u8, clip2_u8))
+    if use_base is None:
+        use_base = tuple(_draw(generator, (clip1_u8.shape[0],)) < p
+                         for _ in range(2))
+
+    def mix(clips, prm, base):
+        aug = apply_augment(clips, prm, out_size, dataset=dataset,
+                            pre_cropped=False)
+        null = center_crop_normalize(clips, out_size, dataset=dataset)
+        return torch.where(_use(base, clips), aug, null)
+
+    return (mix(clip1_u8, params[0], use_base[0]),
+            mix(clip2_u8, params[1], use_base[1]))
+
+
+def one_clip_transform(clip1_u8: torch.Tensor, clip2_u8: torch.Tensor,
+                       out_size: int, dataset: str = "ucf101", *,
+                       pick1=None, base_first=None, params=None,
+                       generator: torch.Generator = None):
+    """OneClipTransform (reference augmentation.py:411-435): keep ONE of
+    the two clips (``pick1``: clip 1 where true) and return (base(x),
+    null(x)) in a random order (``base_first``), per clip; ``params`` the
+    base augmentation's draws."""
+    b = clip1_u8.shape[0]
+    if pick1 is None:
+        pick1 = _draw(generator, (b,)) < 0.5
+    if base_first is None:
+        base_first = _draw(generator, (b,)) < 0.5
+    x = torch.where(_use(pick1, clip1_u8), clip1_u8, clip2_u8)
+    if params is None:
+        params = _augment_params(x, generator)
+    aug = apply_augment(x, params, out_size, dataset=dataset,
+                        pre_cropped=False)
+    null = center_crop_normalize(x, out_size, dataset=dataset)
+    first = _use(base_first, x)
+    return torch.where(first, aug, null), torch.where(first, null, aug)
+
+
+def two_crops_transform(clips_u8: torch.Tensor, out_size: int,
+                        dataset: str = "ucf101", *, params=None,
+                        generator: torch.Generator = None):
+    """TwoCropsTransform (reference augmentation.py:452-461): two
+    independent base augmentations of the same clips (query and key);
+    ``params`` their two draws."""
+    if params is None:
+        params = tuple(_augment_params(clips_u8, generator) for _ in range(2))
+    return tuple(apply_augment(clips_u8, prm, out_size, dataset=dataset,
+                               pre_cropped=False) for prm in params)
+
+
+def transform_controller(fns, weights, *args, choice: int = None,
+                         generator: torch.Generator = None, **kwargs):
+    """TransformController (reference augmentation.py:438-450): call one of
+    ``fns`` with the arguments, picked with probability proportional to
+    ``weights`` (``choice`` injects the pick; else one draw from
+    ``generator``, read on the host, since the pick chooses the code to
+    run)."""
+    if choice is None:
+        w = torch.as_tensor(weights, dtype=torch.float64)
+        u = float(_draw(generator, (1,)).item())
+        cdf = torch.cumsum(w / w.sum(), 0)
+        choice = min(int(torch.searchsorted(cdf, u, right=True)),
+                     len(fns) - 1)
+    return fns[choice](*args, **kwargs)

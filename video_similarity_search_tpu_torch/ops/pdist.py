@@ -106,11 +106,13 @@ def topk_neighbors(queries: torch.Tensor, bank: torch.Tensor, k: int,
     """Top-k nearest rows of ``bank`` for each query (tiled over queries);
     exact, with ties to the lower index. Returns (indices (N,k) int64,
     values (N,k)). A bank smaller than k returns every bank row, padded by
-    repeating the farthest neighbor (JAX ``ops/pdist.py:156-173``)."""
-    if approx:
-        raise NotImplementedError(
-            "approx top-k (TPU approx_min_k) has no exact counterpart here: "
-            "not ported yet (ROADMAP.md, queue 1, 'approximate top-k')")
+    repeating the farthest neighbor (JAX ``ops/pdist.py:156-173``).
+
+    ``approx=True`` (``TPU.APPROX_TOPK``) asks the JAX package for
+    ``lax.approx_min_k``, the TPU's partial-reduce top-k (recall ~0.99);
+    here it runs the same exact top-k (recall 1.0), whose time on an H100
+    PERF.md records (``chip_smoke.py``'s retrieval phase)."""
+    del approx  # the exact top-k serves both
     qn, bn, b_sq = _prep(queries, bank, metric)
     k_eff = min(k, bn.shape[0])
     idxs, vals = [], []
