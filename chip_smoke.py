@@ -137,6 +137,29 @@ clip retrieval:
              resnet3d_flops_per_clip, held equal to the hooks' count); 0
              nn1_cosine launches
 
+and the ninth slice (run after train_cli), the evaluation tools and
+fit_cluster's scikit-learn-free methods:
+
+  tools      DBSCAN and OPTICS (cluster/density.py) on the card over a
+             seeded 9,537 x 128 mixture whose clusters straddle both
+             radii, through fit_cluster's dispatch, held to the port's
+             CPU run (equal but where a pair lies within 1e-5 of the
+             radius), with ms, edges and clusters; Agglomerative on the
+             host at that size; DBSCAN over 240,000 x 128 rows of the
+             planted mixture (ms, edges, clusters, peak device memory)
+             and of the kernel phase's mixture (no pair within the
+             radius: the scan alone); tsne_plot on the card over 20 of
+             101 classes and over all 9,537 points (ms, final KL, 10-NN
+             preservation; the 1,815 points' KL held to the port's CPU
+             run within 2%); the evaluate CLI with --heatmap 0,1 --plot
+             on the cli phase's checkpoint and cached embeddings (its
+             heat map held to an in-process temporal_heat_map), the tsne
+             CLI, and python -m ...cli.generate_report on train_cli's
+             OUTPUT_PATH, each PNG decoded at its declared size; the
+             cluster step with ITERCLUSTER.METHOD DBSCAN, its labels held
+             to the CPU run on the embeddings it clustered; 0 nn1_cosine
+             launches
+
 and the sixth slice, SlowFast and the MoCo pretrain:
 
   slowfast   get_cfg()'s defaults unchanged (SlowFast-50, ALPHA 4, BETA_INV
@@ -756,6 +779,7 @@ def phase_host():
          cv2=cv2.stdout.strip() if cv2.returncode == 0 else None,
          pil=PIL.__version__,
          pil_libjpeg_turbo=features.check_feature("libjpeg_turbo"),
+         pil_freetype=features.check("freetype2"),
          native_decoder_built=built, native_build_s=build_s,
          native_library=(os.path.relpath(native_loader.LIB_PATH, ROOT)
                          if built else None),
@@ -1748,6 +1772,355 @@ def phase_train_cli(paths, step_clips_per_s: float):
          train_step_clips_per_s=step_clips_per_s,
          evaluate_wall_s=ev_wall, resume_wall_s=res_wall,
          resume_line=want, stdout_tail=stdout.strip().splitlines()[-3:])
+
+
+# --------------------------------------------------------------------------
+# the evaluation tools and fit_cluster's density / agglomerative methods
+
+TOOLS_N = 9537  # UCF-101 split 1's training videos
+TOOLS_D = 128
+TOOLS_CLASSES = 101
+TOOLS_TSNE_CLASSES = 20  # tsne_plot's and the tsne CLI's default
+NEAR_RADIUS = 1e-5  # a pair this close to a radius may fall either side
+PRESERVE_K = 10
+# the share of 10-NN a map keeps: chance is k / N (0.0055 at 1,815 points,
+# 0.001 at 9,537); the port's map of the 1,815 keeps 0.36 on the CPU
+PRESERVE_MIN = 0.1
+# the final KL on the card, by class count: 1.2x what the card gave
+# (0.746 at 1,815 points, 0.880 at 9,537); at 1,815 points the card's KL is
+# also held to the port's CPU run on the same rows
+TSNE_MAX_KL = {TOOLS_TSNE_CLASSES: 0.9, TOOLS_CLASSES: 1.06}
+TSNE_KL_REL_VS_CPU = 0.02
+
+
+def planted_mixture(n: int, d: int, seed: int) -> np.ndarray:
+    """tests/test_torch_port_density.py's mixture (before it drops the rows
+    near a radius): n // 25 unit centres, each cluster's spread drawn so
+    that its mean cosine distance is 0.06-0.25, and 5% uniform noise, so
+    the clusters straddle DBSCAN's 0.14 and OPTICS' 0.2."""
+    rng = np.random.default_rng(seed)
+    k = max(n // 25, 2)
+    c = rng.normal(size=(k, d))
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    lbl = rng.integers(0, k, n)
+    spread = rng.uniform(0.06, 0.25, k)
+    sigma = np.sqrt(spread / (1 - spread) / d)
+    x = c[lbl] + sigma[lbl, None] * rng.normal(size=(n, d))
+    noise = rng.random(n) < 0.05
+    x[noise] = rng.normal(size=(int(noise.sum()), d))
+    return x.astype(np.float32)
+
+
+def near_radius_points(x, radius: float, tol: float = NEAR_RADIUS):
+    """Points in a pair whose float64 cosine distance is within ``tol`` of
+    ``radius`` (on the card, in row blocks)."""
+    import torch
+
+    xn = torch.as_tensor(x, dtype=torch.float64, device="cuda")
+    xn = xn / xn.norm(dim=1, keepdim=True)
+    near = torch.zeros(xn.shape[0], dtype=torch.bool, device="cuda")
+    for start in range(0, xn.shape[0], 2048):
+        d = 1.0 - xn[start:start + 2048] @ xn.T
+        hit = (d - radius).abs() < tol
+        own = torch.arange(d.shape[0], device="cuda")
+        hit[own, own + start] = False
+        near[start:start + 2048] |= hit.any(1)
+        near |= hit.any(0)
+    return near.cpu().numpy()
+
+
+DENSITY_RADIUS = {"DBSCAN": 0.14, "OPTICS": 0.2}  # fit_cluster's eps, max_eps
+
+
+def density_card_vs_cpu(method: str, x: np.ndarray, card: np.ndarray,
+                        what: str) -> dict:
+    """fit_cluster(method) labels ``card`` from the card against the port's
+    own CPU run on the same rows: equal except in the clusters of a point
+    that lies in a pair within NEAR_RADIUS of the method's radius."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cluster import density, fit_cluster
+
+    radius = DENSITY_RADIUS[method]
+    cpu = fit_cluster(x, method=method, device="cpu", verbose=False)
+    edges = int(density.radius_graph(torch.from_numpy(x).cuda(),
+                                     radius)[0].numel())
+    near = near_radius_points(x, radius)
+    tainted = near.copy()
+    for lab in (card, cpu):
+        ids = np.unique(lab[near])
+        tainted |= np.isin(lab, ids[ids >= 0])
+    differ = card != cpu
+    check(not (differ & ~tainted).any(),
+          f"{what} card vs CPU: {int(differ.sum())} labels differ, "
+          f"{int((differ & ~tainted).sum())} away from the radius")
+    return {"edges": edges,
+            "clusters": int(len(np.unique(card[card >= 0]))),
+            "noise": int((card == -1).sum()),
+            "points_near_radius": int(near.sum()),
+            "labels_differing_from_cpu": int(differ.sum()),
+            "labels_allowed_to_differ": int(tainted.sum())}
+
+
+def fit_cluster_on_card(method: str, x: np.ndarray) -> dict:
+    """fit_cluster(x, method, device="cuda") as the cluster step calls it,
+    timed, and held to the CPU run."""
+    from video_similarity_search_tpu_torch.cluster import fit_cluster
+
+    def fit():
+        return fit_cluster(x, method=method, device="cuda", verbose=False)
+
+    card = fit()
+    out = {"ms": time_ms(fit, reps=3)}
+    out.update(density_card_vs_cpu(method, x, card, f"fit_cluster {method}"))
+    return out
+
+
+def dbscan_240k(x: np.ndarray) -> dict:
+    """DBSCAN on the card over 240,000 rows: time, edges, clusters and the
+    peak of allocated device memory during the call."""
+    import torch
+
+    from video_similarity_search_tpu_torch.cluster import density
+
+    xc = torch.from_numpy(x).cuda()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    labels = density.dbscan(xc, device="cuda").cpu().numpy()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"ms": time_ms(lambda: density.dbscan(xc, device="cuda"), reps=1),
+           "edges": int(density.radius_graph(xc, 0.14)[0].numel()),
+           "clusters": int(len(np.unique(labels[labels >= 0]))),
+           "noise": int((labels == -1).sum()),
+           "peak_mib_above_input": (peak - resident) / 2 ** 20}
+    check(out["edges"] >= x.shape[0] and labels.shape == (x.shape[0],),
+          "DBSCAN at 240k: every row has its self edge and a label")
+    return out
+
+
+def knn_preservation(x, y, k: int = PRESERVE_K) -> float:
+    """The share of each row's k nearest rows of ``x`` (euclidean) that are
+    among its k nearest in the map ``y``, averaged."""
+    from video_similarity_search_tpu_torch.ops.pdist import topk_neighbors
+
+    kx, ky = (topk_neighbors(a, a, k, metric="euclidean",
+                             exclude_self=True)[0] for a in (x, y))
+    hits = (kx[:, :, None] == ky[:, None, :]).any(2).float()
+    return float(hits.mean())
+
+
+def png_size(path: str):
+    from PIL import Image
+
+    with Image.open(path) as im:
+        im.load()
+        return im.size
+
+
+def phase_tools(paths) -> int:
+    """fit_cluster's DBSCAN and OPTICS on the card over a planted 9,537 x
+    128 mixture against the port's CPU run, Agglomerative on the host, and
+    DBSCAN over 240,000 x 128 rows (the planted mixture, and the kernel
+    phase's mixture, which has no pair within the radius: the scan alone);
+    tsne_plot on the card (20 of 101 classes, and all 9,537 points) with
+    its final KL and 10-NN preservation, the 1,815 points' KL held to the
+    port's CPU run; the evaluate CLI with --heatmap 0,1 --plot on the cli
+    phase's checkpoint and cached embeddings (its heat map held to an
+    in-process temporal_heat_map), the tsne CLI and, as python -m,
+    generate_report on train_cli's OUTPUT_PATH; each PNG decoded at its
+    declared size; the cluster step with ITERCLUSTER.METHOD DBSCAN, its
+    labels held to the CPU run on the embeddings it clustered.
+    nn1_cosine's launches counted from 0 just before the phase. -> those
+    launches (0)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from video_similarity_search_tpu_torch.cli import evaluate
+    from video_similarity_search_tpu_torch.cli import tsne as tsne_cli
+    from video_similarity_search_tpu_torch.cluster import fit_cluster
+    from video_similarity_search_tpu_torch.data import build_data_loader
+    from video_similarity_search_tpu_torch.evaluation import heatmap
+    from video_similarity_search_tpu_torch.evaluation import tsne as tsne_mod
+    from video_similarity_search_tpu_torch.evaluation.report import (
+        parse_scalar_log, parse_val_log)
+    from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.ops import fused_knn
+    from video_similarity_search_tpu_torch.train import driver
+    from video_similarity_search_tpu_torch.train.checkpoint import (
+        load_encoder_state, load_torch_checkpoint)
+
+    jpg, ann, flow = paths
+    work = os.path.join(OUT, "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fused_knn.LAUNCHES = 0
+
+    # (1) the density methods and Agglomerative at UCF-101's train size
+    x = planted_mixture(TOOLS_N, TOOLS_D, SEED)
+    clusters = {m.lower(): fit_cluster_on_card(m, x)
+                for m in ("DBSCAN", "OPTICS")}
+    t0 = time.perf_counter()
+    agg = fit_cluster(x, method="Agglomerative", device="cuda", verbose=False)
+    clusters["agglomerative_host"] = {
+        "s": time.perf_counter() - t0,
+        "clusters": int(len(np.unique(agg)))}
+    check(agg.shape == (TOOLS_N,) and agg.min() == 0,
+          "Agglomerative labels every row")
+    clusters["dbscan_240k_planted"] = dbscan_240k(
+        planted_mixture(240_000, TOOLS_D, SEED))
+    clusters["dbscan_240k_kernel_mixture"] = dbscan_240k(
+        mixture(240_000, seed=0)[0])
+
+    # (2) t-SNE on the card: 20 of 101 classes, then every point
+    emb, lbl = mixture(TOOLS_N, d=TOOLS_D, classes=TOOLS_CLASSES, seed=1)
+    tsne, cpu_rows = {}, None
+    for n_cls in (TOOLS_TSNE_CLASSES, TOOLS_CLASSES):
+        png = os.path.join(work, f"tsne_{n_cls}.png")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tsne_mod.tsne_plot(emb, lbl, out_path=png, n_classes=n_cls,
+                           device="cuda")
+        plot_ms = 1e3 * (time.perf_counter() - t0)
+        check(png_size(png) == (1500, 1200), f"{png}: 1500 x 1200")
+        rows = emb[np.isin(lbl, tsne_mod.choose_classes(lbl, n_cls, 0))]
+        xs = tsne_mod.pca(torch.from_numpy(rows).cuda(), 50).float()
+        if n_cls == TOOLS_TSNE_CLASSES:
+            cpu_rows = xs.cpu()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, kl, it = tsne_mod.tsne(xs, perplexity=30.0, device="cuda")
+        torch.cuda.synchronize()
+        tsne_ms = 1e3 * (time.perf_counter() - t0)
+        pres = knn_preservation(xs, y)
+        chance = PRESERVE_K / len(rows)
+        check(bool(torch.isfinite(y).all()) and np.isfinite(kl)
+              and kl < TSNE_MAX_KL[n_cls],
+              f"t-SNE of {len(rows)} points: KL {kl}")
+        check(pres >= PRESERVE_MIN,
+              f"t-SNE of {len(rows)} points: 10-NN preservation {pres}")
+        tsne[str(len(rows))] = {
+            "classes": n_cls, "plot_ms": plot_ms, "tsne_ms": tsne_ms,
+            "kl": kl, "last_iter": it, "knn10_preservation": pres,
+            "chance": chance}
+
+    # the CPU t-SNE of the 1,815 points runs in a thread beside (3) and (4)
+    pool = ThreadPoolExecutor(1)
+    cpu_run = pool.submit(tsne_mod.tsne, cpu_rows, 30.0, device="cpu")
+
+    # (3) the CLIs on the cli and train_cli phases' outputs
+    ckpt = os.path.join(OUT, "cli", "r3d18_seed0.pth.tar")
+    cli_out = os.path.join(OUT, "cli", "out")  # holds the cached embeddings
+    data = ["DATASET.VID_PATH", jpg, "DATASET.ANNOTATION_PATH", ann,
+            "DATASET.OPTICAL_U_PATH", flow]
+    captured = {}
+
+    def capture(*args, **kw):
+        captured["heat"] = heat_map(*args, **kw)
+        return captured["heat"]
+
+    heat_map = heatmap.temporal_heat_map
+    heatmap.temporal_heat_map = capture
+    try:
+        ev_out, ev_wall = run_main(evaluate.main, [
+            "--cfg", UCF_YAML, "--checkpoint_path", ckpt, "--output",
+            cli_out, "--device", "cuda", "--heatmap", "0,1", "--plot"]
+            + data, "evaluate CLI --heatmap 0,1 --plot")
+    finally:
+        heatmap.temporal_heat_map = heat_map
+    cfg = ucf_cfg(jpg, ann, flow, cli_out)
+    model = model_selector(cfg)
+    load_encoder_state(model, load_torch_checkpoint(ckpt)["torch_state_dict"],
+                       verbose=False)
+    _, (test_ds, _) = build_data_loader("test", cfg, triplets=False,
+                                        drop_last=False, batch_size=1,
+                                        device="cuda")
+    pos, dists = heat_map(model, cfg, test_ds, exemplar_idx=0, test_idx=1,
+                          device="cuda")
+    heat_err = float(np.abs(dists - captured["heat"][1]).max())
+    check(np.array_equal(pos, captured["heat"][0]) and heat_err <= 1e-5,
+          f"the CLI's heat map vs in-process: {heat_err}")
+    n_test = len(test_ds.samples)
+    grid = ((5 + 1) * 240, min(4, n_test) * 240)
+    for name, size in (("temporal_heat_map.png", (960, 360)),
+                       ("exemplar_retrievals.png", grid)):
+        got = png_size(os.path.join(cli_out, name))
+        check(got == size, f"{name}: {got} (want {size})")
+
+    work_cli = os.path.join(OUT, "train_cli")
+    tsne_png = os.path.join(work, "tsne_cli.png")
+    ts_out, ts_wall = run_main(tsne_cli.main, [
+        "--cfg", UCF_YAML, "--checkpoint_path", ckpt, "--output", tsne_png,
+        "--split", "val", "--device", "cuda", "DATASET.VID_PATH", jpg,
+        "DATASET.ANNOTATION_PATH",
+        os.path.join(work_cli, "annotation_trainval.json"),
+        "DATASET.OPTICAL_U_PATH", flow], "tsne CLI")
+    check(png_size(tsne_png) == (1500, 1200), "tsne CLI PNG: 1500 x 1200")
+
+    run_dir = os.path.join(work_cli, "out")
+    logs = os.path.join(run_dir, "tnet_checkpoints")
+    val = parse_val_log(os.path.join(logs, "val_loss_and_acc.txt"))
+    panels = 2 + sum(bool(v) for v in (
+        val["top1"], parse_scalar_log(os.path.join(logs, "NMIs.txt")),
+        parse_scalar_log(os.path.join(logs, "AMIs.txt"))))
+    rep_out, rep_wall = run_cli(
+        [sys.executable, "-m",
+         "video_similarity_search_tpu_torch.cli.generate_report",
+         "--output_path", run_dir], "generate_report CLI", timeout=300)
+    rep_png = os.path.join(logs, "training_progress.png")
+    check(png_size(rep_png) == (600 * panels, 525),
+          f"training_progress.png: {png_size(rep_png)} ({panels} panels)")
+
+    # (4) the cluster step with ITERCLUSTER.METHOD DBSCAN, on the card
+    cfg.OUTPUT_PATH = os.path.join(work, "cluster_step_dbscan")
+    cfg.ITERCLUSTER.METHOD = "DBSCAN"
+    train_loader, (train_ds, _) = build_data_loader(
+        "train", cfg, triplets=False, req_train_shuffle=False,
+        drop_last=False, device="cuda")
+    seen = {}
+
+    def record(emb, **kw):
+        seen["emb"] = np.asarray(emb, np.float32)
+        seen["labels"] = fit(emb, **kw)
+        return seen["labels"]
+
+    fit, before = driver.fit_cluster, fused_knn.LAUNCHES
+    driver.fit_cluster = record
+    try:
+        t0 = time.perf_counter()
+        step_labels = driver.iterative_cluster_step(model, cfg, train_loader,
+                                                    device="cuda")
+        step_s = time.perf_counter() - t0
+    finally:
+        driver.fit_cluster = fit
+    step = {"videos": len(train_ds), "s": step_s,
+            "nn1_cosine_launches": fused_knn.LAUNCHES - before}
+    step.update(density_card_vs_cpu("DBSCAN", seen["emb"], seen["labels"],
+                                    "the DBSCAN cluster step"))
+    with open(os.path.join(cfg.OUTPUT_PATH, "vid_clusters.txt")) as f:
+        lines = [ln for ln in f.read().splitlines() if ln]
+    check(np.array_equal(np.array(lines, np.int64), step_labels)
+          and len(lines) == len(train_ds),
+          "DBSCAN step: vid_clusters.txt holds the labels, one a video")
+
+    cpu_n = str(cpu_rows.shape[0])
+    _, cpu_kl, _ = cpu_run.result()
+    pool.shutdown()
+    tsne[cpu_n]["cpu_kl"] = cpu_kl
+    rel = abs(tsne[cpu_n]["kl"] - cpu_kl) / cpu_kl
+    check(rel <= TSNE_KL_REL_VS_CPU,
+          f"t-SNE of {cpu_n} points: card KL {tsne[cpu_n]['kl']} vs CPU "
+          f"{cpu_kl}")
+
+    launches = fused_knn.LAUNCHES
+    check(launches == 0, f"the tools launched nn1_cosine {launches} times")
+    emit("tools", clusters=clusters, tsne=tsne, dbscan_cluster_step=step,
+         evaluate_wall_s=ev_wall, heat_map_positions=[int(p) for p in pos],
+         heat_map_max_abs_err_vs_in_process=heat_err,
+         exemplar_grid=list(grid), tsne_cli_wall_s=ts_wall,
+         generate_report_wall_s=rep_wall, report_panels=panels,
+         nn1_cosine_launches=launches)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -4253,6 +4626,7 @@ def main() -> int:
     del ucf_model, train_loader
     step_rate = run("train_step", phase_train_step)
     run("train_cli", phase_train_cli, paths, step_rate)
+    tools_launches = run("tools", phase_tools, paths)
     run("train_options", phase_train_options)
     run("contrastive", phase_contrastive, paths)
     fused_knn.LAUNCHES = 0
@@ -4288,7 +4662,8 @@ def main() -> int:
         "sass": key_opcodes(sass["nn1_cosine"]),
         "shape": main_shape["shape"], "shapes": shapes,
         "dist_launches_per_rank": dist_launches,
-        "lmdb_launches": lmdb_launches, "iic_launches": iic_launches}]}),
+        "lmdb_launches": lmdb_launches, "iic_launches": iic_launches,
+        "tools_launches": tools_launches}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

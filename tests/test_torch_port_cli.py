@@ -5,8 +5,8 @@ kenshohara key names, saved with a DDP ``module.`` prefix) and run on the
 same synthetic JPEG dataset; the port with ``--device cpu``. The JAX CLI
 runs in this process (its ``main`` under a patched ``sys.argv``). The
 embeddings agree within atol 2e-4 and ``global_retrieval_acc.txt`` is the
-same. Also: the checkpoint reader and loader, and the flags the port does
-not serve.
+same. Also: the checkpoint reader and loader, the tool flags' PNGs, and
+the orbax directory the port does not read.
 """
 
 import importlib.util
@@ -107,9 +107,24 @@ def test_cli_matches_jax_cli(setup, monkeypatch, crop):
 
 
 @pytest.mark.parametrize("flag", [["--heatmap", "0,1"], ["--plot"]])
-def test_tools_not_ported_raise(setup, flag):
-    with pytest.raises(NotImplementedError, match="item 21"):
-        t_cli.main(["--cfg", setup["cfg"], "--device", "cpu"] + flag)
+def test_tools_not_ported_raise(setup, flag, tmp_path):
+    """The two tool flags, refused before the evaluation tools were
+    ported, now write their PNGs under OUTPUT_PATH at the JAX figures'
+    pixel sizes (8 x 3 in at 120 dpi; 2 (k + 1) x 2 n in at 120 dpi with
+    k = 5 of the 6 train videos and n = the 3 test videos)."""
+    from PIL import Image
+
+    out = str(tmp_path / "out")
+    t_cli.main(["--cfg", setup["cfg"], "--checkpoint_path", setup["ckpt"],
+                "--output", out, "--device", "cpu"] + flag)
+    name, size = (("temporal_heat_map.png", (960, 360))
+                  if flag[0] == "--heatmap"
+                  else ("exemplar_retrievals.png", (1440, 720)))
+    with Image.open(os.path.join(out, name)) as im:
+        im.load()
+        assert im.size == size
+    assert os.path.exists(os.path.join(out, "tnet_checkpoints",
+                                       "global_retrieval_acc.txt"))
 
 
 def test_orbax_checkpoint_dir_raises(setup, tmp_path):

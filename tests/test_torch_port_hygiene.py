@@ -1,5 +1,6 @@
 """Rules the PyTorch port keeps: no JAX anywhere in it (its ``parallel``
-package included) or in chip_smoke.py, no silent fall back to the CPU (the
+package included) or in chip_smoke.py, no scikit-learn or matplotlib
+either (the card's machine has neither), no silent fall back to the CPU (the
 serving, clustering, training, contrastive, MoCo and classification entry
 points alike) nor to one process (a training launch over several ranks
 whose rendezvous fails raises within its timeout), its own copy of the
@@ -21,6 +22,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "video_similarity_search_tpu_torch")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
              "video_similarity_search_tpu")
+HOST_ONLY = ("sklearn", "matplotlib")  # absent on the card's machine
 
 
 def _port_sources():
@@ -47,6 +49,16 @@ def test_port_and_chip_smoke_import_no_jax():
     bad = [(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN]
     assert not bad, f"JAX-side imports in the port: {bad}"
+
+
+def test_port_and_chip_smoke_import_no_sklearn_or_matplotlib():
+    """chip_smoke.py's host phase probes for both packages by name, without
+    importing them."""
+    files = _port_sources()
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), m) for f in files
+           for m in _imported_roots(f) if m in HOST_ONLY]
+    assert not bad, f"scikit-learn / matplotlib imports in the port: {bad}"
 
 
 def test_parallel_package_imports_no_jax():
@@ -98,7 +110,9 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
     from video_similarity_search_tpu_torch.cli import (coclr_classify,
                                                        online_train)
     from video_similarity_search_tpu_torch.evaluation import (
-        test_10crop, test_retrieval, validate)
+        plot_exemplar_retrievals, temporal_heat_map, test_10crop,
+        test_retrieval, tsne_plot, validate)
+    from video_similarity_search_tpu_torch.cli import tsne as tsne_cli
     from video_similarity_search_tpu_torch.models import (LinearClassifier,
                                                           model_selector)
     from video_similarity_search_tpu_torch.train import (
@@ -145,7 +159,17 @@ def test_entry_points_without_device_raise_on_a_box_without_cuda():
              lambda: coclr_classify.main([]),
              lambda: make_classify_train_step(s3d_cfg, classifier, *cls_opt),
              lambda: test_10crop(classifier, s3d_cfg, []),
-             lambda: test_retrieval(classifier, s3d_cfg, [], [])]
+             lambda: test_retrieval(classifier, s3d_cfg, [], []),
+             lambda: fit_cluster(x, method="Agglomerative", verbose=False),
+             lambda: fit_cluster(x, method="DBSCAN", verbose=False),
+             lambda: fit_cluster(x, method="OPTICS", verbose=False),
+             lambda: tsne_plot(x, y),
+             lambda: temporal_heat_map(model, cfg, None, exemplar_idx=0,
+                                       test_idx=1),
+             lambda: plot_exemplar_retrievals(x, x, [{}], [{}], "x.png"),
+             lambda: tsne_cli.main([
+                 "--cfg", os.path.join(ROOT, "configs",
+                                       "resnet_ucf_itercluster_flow.yaml")])]
     model = model_selector(cfg)
     opt = make_optimizer(cfg, model.parameters())
     nce_cfg = cfg.clone()

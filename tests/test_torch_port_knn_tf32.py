@@ -152,6 +152,21 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     assert cuda_build.library_path("k")[1] != first
 
 
+def test_build_hash_covers_the_toolkit(tmp_path, monkeypatch):
+    """Another ``nvcc --version`` text (a toolkit change) names another
+    library; none (no nvcc, as on a CPU-only machine) still names one."""
+    (tmp_path / "k.cu").write_text("// kernel\n")
+    monkeypatch.setattr(cuda_build, "CSRC", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path / "build"))
+    names = {}
+    for text in ("", "Cuda compilation tools, release 12.8, V12.8.93",
+                 "Cuda compilation tools, release 12.9, V12.9.41"):
+        monkeypatch.setattr(cuda_build, "toolkit_version", lambda t=text: t)
+        names[text] = cuda_build.library_path("k")[1]
+        assert cuda_build.library_path("k")[1] == names[text]
+    assert len(set(names.values())) == 3
+
+
 def test_one_accumulator_form_derives_from_the_kernel_source():
     """utils/nn1_accumulation.py rewrites the kernel's chunk sums into one
     tensor-core accumulator; the code it rewrites must be there once."""

@@ -2,10 +2,12 @@
 (clustering/cluster_masks.py:38-98); port of the JAX package's
 ``cluster/fit.py``.
 
-Methods: kmeans (Lloyd on the card, L2-normalize preprocessing),
-spherical_kmeans, finch (FINCH on the card), and the rarely-used sklearn
-estimators (Agglomerative / DBSCAN / OPTICS) kept host-side with the
-reference's hyperparameters, sklearn imported only when one is asked for.
+Methods, with the reference's hyperparameters: kmeans (Lloyd on the
+device, L2-normalize preprocessing), spherical_kmeans, finch (FINCH on the
+device), DBSCAN and OPTICS (``density.py``, on the device) and
+Agglomerative (``agglomerative.py``, scipy's average linkage on the host,
+as in the JAX package). scikit-learn is not imported: each method gives
+the labels its scikit-learn estimator gives.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.device import resolve_device
+from .agglomerative import agglomerative_cosine
+from .density import dbscan, optics_dbscan
 from .finch import FINCH
 from .kmeans import kmeans
 
@@ -44,18 +48,12 @@ def fit_cluster(embeddings, method: str = "Agglomerative", k: int = 1000,
         if verbose:
             print(f"Taking partition {part} from finch")
     elif method == "Agglomerative":
-        from sklearn.cluster import AgglomerativeClustering
-        labels = AgglomerativeClustering(
-            n_clusters=None, linkage="average", distance_threshold=0.24,
-            metric="cosine").fit(emb).labels_
+        labels = agglomerative_cosine(emb, distance_threshold=0.24)
     elif method == "DBSCAN":
-        from sklearn.cluster import DBSCAN
-        labels = DBSCAN(eps=0.14, min_samples=2, metric="cosine",
-                        n_jobs=-1).fit(emb).labels_
+        labels = dbscan(emb, eps=0.14, min_samples=2, device=dev).cpu().numpy()
     elif method == "OPTICS":
-        from sklearn.cluster import OPTICS
-        labels = OPTICS(min_samples=3, max_eps=0.20, cluster_method="dbscan",
-                        metric="cosine", n_jobs=-1).fit(emb).labels_
+        labels = optics_dbscan(emb, min_samples=3, max_eps=0.20,
+                               device=dev).cpu().numpy()
 
     labels = np.asarray(labels).astype(np.int64)
     if verbose:

@@ -339,3 +339,10 @@ def generate_model(model_depth: int, **kwargs) -> ResNet3D:
     block, layers = _DEPTH_TO_SPEC[model_depth]
     return ResNet3D(block=block, layers=layers, **kwargs)
 
+
+def backbone_feature_dim(model_depth: int, widen_factor: float = 1.0) -> int:
+    """Width of the pooled backbone feature (before the projection head)."""
+    block, _ = _DEPTH_TO_SPEC[model_depth]
+    expansion = 1 if block == "basic" else 4
+    return int(512 * widen_factor) * expansion
+

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C entry point and is compiled for
 ``sm_90a`` into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the
-source, every ``csrc/*.cuh`` header and the flags, so an edited source or
-header is rebuilt), then loaded with ``ctypes``. Only sources in the
+source, every ``csrc/*.cuh`` header, the flags and ``nvcc --version``'s
+text, so an edited source or header, or another toolkit, is rebuilt),
+then loaded with ``ctypes``. Only sources in the
 checkout are used; nothing is fetched. The libraries link no ``-lcuda``:
 a driver call a kernel needs (``cuTensorMapEncodeTiled``) is fetched at
 run time through ``cudaGetDriverEntryPoint``. A machine with CUDA but no
@@ -13,6 +14,7 @@ run time through ``cudaGetDriverEntryPoint``. A machine with CUDA but no
 from __future__ import annotations
 
 import ctypes
+import functools
 import glob
 import hashlib
 import os
@@ -33,21 +35,39 @@ _LOADED: Dict[str, ctypes.CDLL] = {}
 BUILD_LOGS: Dict[str, str] = {}  # name -> nvcc output (ptxas register use)
 
 
-def find_nvcc() -> str:
+def _nvcc_or_none():
     for cand in (shutil.which("nvcc"),
                  os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                               "bin", "nvcc")):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
-                       "/usr/local/cuda/bin): the port's CUDA kernels are "
-                       "built from csrc/ at first use and need it")
+    return None
+
+
+def find_nvcc() -> str:
+    nvcc = _nvcc_or_none()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, "
+                           "/usr/local/cuda/bin): the port's CUDA kernels "
+                           "are built from csrc/ at first use and need it")
+    return nvcc
+
+
+@functools.lru_cache(maxsize=1)
+def toolkit_version() -> str:
+    """``nvcc --version``'s text, or "" where no nvcc is found."""
+    nvcc = _nvcc_or_none()
+    if nvcc is None:
+        return ""
+    return subprocess.run([nvcc, "--version"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout
 
 
 def library_path(name: str) -> Tuple[str, str]:
     """-> (source path, versioned .so path) for ``csrc/<name>.cu``."""
     src = os.path.join(CSRC, f"{name}.cu")
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    digest.update(toolkit_version().encode())
     for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(path, "rb") as f:
             digest.update(os.path.basename(path).encode() + f.read())
