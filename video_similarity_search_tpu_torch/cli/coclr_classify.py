@@ -203,8 +203,8 @@ def main(argv: Optional[List[str]] = None):
         meters = {k: AverageMeter(k) for k in ("loss", "top1", "top5")}
         thru = Throughput()
         train_loader.set_epoch(epoch)
-        # device metrics are read after the epoch: a per-step float() would
-        # make the host wait for the card every step
+        # device metrics are read after the first step and the epoch: a
+        # per-step float() would make the host wait for the card every step
         pending = []
 
         def update(m, n):
@@ -220,8 +220,9 @@ def main(argv: Optional[List[str]] = None):
             label = torch.as_tensor(np.asarray(batch["target"])).to(dev).long()
             m = step_fn({"clips": clips, "label": label}, generator=gen)
             pending.append((m, len(batch["target"])))
-            thru.tick(len(batch["target"]))
-        _drain(pending, update)
+            if i == 0:
+                thru.done(_drain(pending, update))
+        thru.done(_drain(pending, update))
         print(f"epoch {epoch}: lr {lr:.5f} loss {meters['loss'].avg:.4f} "
               f"top1 {meters['top1'].avg:.4f} "
               f"({thru.items_per_sec:.1f} clips/s)")

@@ -180,7 +180,10 @@ def _build_default_cfg() -> ConfigNode:
     # buffer — 4x fewer transfer bytes and ~25% less host decode work;
     # the device augmentation then skips its crop+resize
     _C.TPU.HOST_RRC = False
-    _C.TPU.PROFILE_DIR = ""  # capture a jax.profiler trace of epoch-0 steps
+    # a torch.profiler Chrome trace of the triplet epoch's steps 5-9 in
+    # epoch 0, with the port's spans (utils/profiling.py), written to
+    # <PROFILE_DIR>/trace_steps5-9.json; "" = off
+    _C.TPU.PROFILE_DIR = ""
     _C.TPU.REMAT = False  # checkpoint residual blocks (big-batch training)
     # restrict remat to specific 1-based stages, e.g. "1" (stage-1 holds
     # the ~2 GB activations at 256-clip steps); "" = all stages

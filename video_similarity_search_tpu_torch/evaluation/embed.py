@@ -25,6 +25,7 @@ import torch
 from ..data.augment import normalize_only
 from ..train.steps import make_embed_step
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
 def _pad_clips(arr, quantum: int) -> Tuple[object, int]:
@@ -62,8 +63,13 @@ def get_embeddings_and_labels(model, cfg, loader, *, split: str = "train",
         if quantum is None:
             quantum = clips.shape[0]  # first batch is full: its clip count
         clips, _ = _pad_clips(clips, quantum)
-        x = normalize_only(torch.as_tensor(clips).to(dev), dataset=dataset)
-        emb = embed(x)[:n_clips].cpu().numpy()
+        with span("embed.upload"):
+            x = torch.as_tensor(clips).to(dev)
+        with span("embed.forward"):
+            x = normalize_only(x, dataset=dataset)
+            emb = embed(x)
+        with span("embed.readback"):
+            emb = emb[:n_clips].cpu().numpy()
 
         # collapse windows back to one embedding per video
         if np.any(counts[:n_items] > 1):

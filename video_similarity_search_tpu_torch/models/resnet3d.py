@@ -43,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..utils.profiling import span
 from .heads import Dropout
 from .layers import (BatchNorm, Conv3d, ProjectionHead, frozen_stats,
                      global_avg_pool, max_pool3d)
@@ -297,15 +298,16 @@ class ResNet3D(nn.Module):
         """``dropout_keep`` / ``generator``: the classifier's dropout mask,
         given or drawn (``heads.Dropout``)."""
         assert x.ndim == 5, f"expected (B,T,H,W,C), got {tuple(x.shape)}"
-        if self.stem_s2d:
-            h = space_to_depth(x).permute(0, 4, 1, 2, 3)
-            out_h, out_w = h.shape[-2:]
-            h = self.conv1(h)[..., :out_h, :out_w]
-        else:
-            h = self.conv1(x.permute(0, 4, 1, 2, 3))  # channels_last_3d
-        h = F.relu(self.bn1(h))
-        if not self.no_max_pool:
-            h = max_pool3d(h)
+        with span("model.stem"):
+            if self.stem_s2d:
+                h = space_to_depth(x).permute(0, 4, 1, 2, 3)
+                out_h, out_w = h.shape[-2:]
+                h = self.conv1(h)[..., :out_h, :out_w]
+            else:
+                h = self.conv1(x.permute(0, 4, 1, 2, 3))  # channels_last_3d
+            h = F.relu(self.bn1(h))
+            if not self.no_max_pool:
+                h = max_pool3d(h)
         for stage in range(1, self.n_stages + 1):
             h = self._stage(stage, h)
         feat = global_avg_pool(h)

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .heads import Dropout
 from .layers import BatchNorm, Conv3d, global_avg_pool
 
@@ -385,7 +386,9 @@ class SlowFast(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         assert isinstance(x, (list, tuple)) and len(x) == 2, \
             "SlowFast expects [slow, fast] inputs"
-        paths = self.s1_fuse(self.s1([_to_torch_layout(v) for v in x]))
+        with span("model.stem"):
+            paths = self.s1([_to_torch_layout(v) for v in x])
+        paths = self.s1_fuse(paths)
         for s in range(2, 6):
             paths = getattr(self, f"s{s}")(paths)
             if s < 5:
@@ -432,7 +435,8 @@ class SinglePathwayResNet(nn.Module):
     def forward(self, x: torch.Tensor,
                 dropout_keep: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        h = self.s1([_to_torch_layout(x)])
+        with span("model.stem"):
+            h = self.s1([_to_torch_layout(x)])
         for s in range(2, 6):
             h = getattr(self, f"s{s}")(h)
             if s == 2 and any(p > 1 for p in self.pool1):

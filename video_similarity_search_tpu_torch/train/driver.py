@@ -60,7 +60,7 @@ from ..utils.cluster_metrics import (adjusted_mutual_info,
 from ..utils.device import resolve_device
 from ..utils.meters import AverageMeter, append_metric_line
 from ..utils.metrics_sink import MetricsSink
-from ..utils.profiling import StepProfiler, Throughput
+from ..utils.profiling import StepProfiler, Throughput, span
 
 BASE_SEED = 1234  # the JAX driver's jax.random.key(1234)
 CLIP_LEAVES = ("anchor", "positive", "extra", "negative")
@@ -113,24 +113,27 @@ def _device_batch(batch, cfg, generator: Optional[torch.Generator],
         leaf = batch[name]
         if accum > 1:
             leaf = _microbatch_leaf(name, leaf, accum)
-        clips = _to_device(leaf, dev)
-        if not train:
-            out[name] = normalize_only(clips, dataset=dataset)
-        elif accum > 1:
-            out[name] = torch.stack([
-                train_augment(clips[a], generator, size, dataset=dataset,
-                              pre_cropped=pre_cropped, shard=rows)
-                for a in range(accum)])
-        else:
-            out[name] = train_augment(clips, generator, size,
-                                      dataset=dataset,
-                                      pre_cropped=pre_cropped, shard=rows)
+        with span("batch.upload"):
+            clips = _to_device(leaf, dev)
+        with span("batch.augment"):
+            if not train:
+                out[name] = normalize_only(clips, dataset=dataset)
+            elif accum > 1:
+                out[name] = torch.stack([
+                    train_augment(clips[a], generator, size, dataset=dataset,
+                                  pre_cropped=pre_cropped, shard=rows)
+                    for a in range(accum)])
+            else:
+                out[name] = train_augment(clips, generator, size,
+                                          dataset=dataset,
+                                          pre_cropped=pre_cropped, shard=rows)
     for name in ("targets", "index"):
         if name in batch:
             leaf = batch[name]
             if accum > 1:
                 leaf = _microbatch_leaf(name, leaf, accum)
-            out[name] = _to_device(leaf, dev).long()
+            with span("batch.upload"):
+                out[name] = _to_device(leaf, dev).long()
     return out
 
 
@@ -140,12 +143,18 @@ def step_seed(epoch: int, batch_idx: int) -> int:
     return BASE_SEED * 1_000_003 + epoch * 100000 + batch_idx
 
 
-def _drain(pending, meter_updates) -> None:
-    """Read deferred device metrics on the host. Reading each step would
-    make the host wait for the card every step."""
-    for metrics, bsz in pending:
-        meter_updates(metrics, bsz)
+def _drain(pending, meter_updates) -> int:
+    """Read deferred device metrics on the host -> the items of the steps
+    read, which the card has now finished. Reading each step would make
+    the host wait for the card every step; the epochs read the first step
+    alone (``Throughput``), then every ``TRAIN.LOG_INTERVAL`` steps."""
+    items = 0
+    with span("metrics.drain"):
+        for metrics, bsz in pending:
+            meter_updates(metrics, bsz)
+            items += bsz
     pending.clear()
+    return items
 
 
 def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
@@ -172,9 +181,10 @@ def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
                                   device=device, accum=accum)
         metrics = step_fn(dev_batch, generator)
         pending.append((metrics, batch["__size__"]))
-        thru.tick(batch["__size__"])
+        if batch_idx == 0:
+            thru.done(_drain(pending, update))
         if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
-            _drain(pending, update)
+            thru.done(_drain(pending, update))
             print(f"Train Epoch: {epoch} [{losses.count}]\t"
                   f"Loss: {losses.val:.4f} ({losses.avg:.4f})\t"
                   f"N_Triplets: {n_triplets.avg:.1f}\t"
@@ -184,7 +194,7 @@ def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
                 sink.add_scalar("train/loss", losses.val, it)
                 sink.add_scalar("train/clips_per_sec", thru.items_per_sec,
                                 it)
-    _drain(pending, update)
+    thru.done(_drain(pending, update))
     profiler.close()
     if is_master:
         runtime_h = (time.time() - start) / 3600
@@ -234,9 +244,10 @@ def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
             step_batch["view2"] = dev_batch["positive"]
         metrics = step_fn(step_batch, generator)
         pending.append((metrics, batch["__size__"]))
-        thru.tick(batch["__size__"])
+        if batch_idx == 0:
+            thru.done(_drain(pending, update))
         if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
-            _drain(pending, update)
+            thru.done(_drain(pending, update))
             print(f"Train Epoch: {epoch} [{losses.count}]\t"
                   f"Loss: {losses.val:.4f} ({losses.avg:.4f})\t"
                   f"{thru.items_per_sec:.1f} clips/s")
@@ -245,7 +256,7 @@ def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
                 sink.add_scalar("train/loss", losses.val, it)
                 sink.add_scalar("train/view1_loss", v1_loss.val, it)
                 sink.add_scalar("train/view2_loss", v2_loss.val, it)
-    _drain(pending, update)
+    thru.done(_drain(pending, update))
     if is_master:
         runtime_h = (time.time() - start) / 3600
         print(f"\nTrain set: Average loss: {losses.avg:.4f} "
@@ -287,9 +298,10 @@ def ubernce_train_epoch(step_fn, train_loader, cfg, epoch: int,
                            "x2": dev_batch["positive"],
                            "label": dev_batch["targets"][:b]}, generator)
         pending.append((metrics, batch["__size__"]))
-        thru.tick(batch["__size__"])
+        if batch_idx == 0:
+            thru.done(_drain(pending, update))
         if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
-            _drain(pending, update)
+            thru.done(_drain(pending, update))
             print(f"Train Epoch: {epoch} [{losses.count}]\t"
                   f"Loss: {losses.val:.4f} ({losses.avg:.4f})  "
                   f"Top1:{top1.val:.4f} Top5:{top5.val:.4f}\t"
@@ -299,7 +311,7 @@ def ubernce_train_epoch(step_fn, train_loader, cfg, epoch: int,
                 sink.add_scalar("train/loss", losses.val, it)
                 sink.add_scalar("train/top1", top1.val, it)
                 sink.add_scalar("train/top5", top5.val, it)
-    _drain(pending, update)
+    thru.done(_drain(pending, update))
     if is_master:
         runtime_h = (time.time() - start) / 3600
         print(f"\nTrain set: Average loss: {losses.avg:.4f} "

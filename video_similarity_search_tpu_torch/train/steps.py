@@ -32,7 +32,6 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..losses import (INTRA_NEG_LAMBDA, RSP_LAMBDA, MemoryMoCo,
                       MemTripletLoss, NCEAverage, intra_neg_loss, llc_loss,
@@ -45,10 +44,12 @@ from ..models.slowfast import multipathway_input
 from ..parallel import (gather_parts, gather_rows, get_rank, get_world_size,
                         sum_gradients)
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 
-# the train steps' profiler ranges, in order: forward and loss, backward,
-# optimizer (a profiler over the real step splits its device time by them)
+# the train steps' spans (``utils/profiling.py::span``), in order: forward
+# and loss, backward, optimizer (a profiler over the real step splits its
+# device time by them)
 RANGES = ("step.forward_loss", "step.backward", "step.optimizer")
 
 
@@ -167,16 +168,16 @@ def make_classify_train_step(cfg, model: torch.nn.Module,
              ) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        with record_function(RANGES[0]):
+        with span(RANGES[0]):
             with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
                 out = model(batch["clips"], dropout_keep=dropout_keep,
                             generator=generator)
             logits = (out[0] if isinstance(out, tuple) else out).float()
             labels = batch["label"].long()
             loss = F.cross_entropy(logits, labels)
-        with record_function(RANGES[1]):
+        with span(RANGES[1]):
             loss.backward()
-        with record_function(RANGES[2]):
+        with span(RANGES[2]):
             optimizer.step()
             schedule.step()
         logits = logits.detach()
@@ -291,9 +292,9 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         if accum == 1:
-            with record_function(RANGES[0]):
+            with span(RANGES[0]):
                 loss, aux = loss_fn(batch, noise, generator)
-            with record_function(RANGES[1]):
+            with span(RANGES[1]):
                 loss.backward()
                 sum_gradients(params)
             metrics = {"loss": loss.detach(), **aux}
@@ -301,10 +302,10 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
             parts = []
             for a in range(accum):
                 mb = {k: v[a] for k, v in batch.items()}
-                with record_function(RANGES[0]):
+                with span(RANGES[0]):
                     loss, aux = loss_fn(mb, None if noise is None
                                         else noise[a], generator)
-                with record_function(RANGES[1]):
+                with span(RANGES[1]):
                     loss.backward()
                 parts.append({"loss": loss.detach(), **aux})
             sum_gradients(params)
@@ -319,7 +320,7 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
             metrics["negatives"] = (
                 None if parts[0]["negatives"] is None else
                 torch.stack([m["negatives"] for m in parts]))
-        with record_function(RANGES[2]):
+        with span(RANGES[2]):
             optimizer.step()
             schedule.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -431,10 +432,10 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
         parts = []
         for a in range(accum):
             mb = {k: nth(v, a) for k, v in batch.items()}
-            with record_function(RANGES[0]):
+            with span(RANGES[0]):
                 loss, aux = loss_fn(mb, generator, nth(nce_idx, a),
                                     nth(shuffle_perm, a))
-            with record_function(RANGES[1]):
+            with span(RANGES[1]):
                 loss.backward()
             parts.append(torch.stack([loss.detach()]
                                      + [v.detach() for v in aux]))
@@ -444,7 +445,7 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
                 for p in params:
                     if p.grad is not None:
                         p.grad.div_(accum)
-        with record_function(RANGES[2]):
+        with span(RANGES[2]):
             optimizer.step()
             schedule.step()
         means = torch.stack(parts).mean(0)
@@ -495,7 +496,7 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         labels = gather_rows(batch["label"])
-        with record_function(RANGES[0]):
+        with span(RANGES[0]):
             with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
                 if uber:
                     logits, mask, keys = ubernce_forward(
@@ -506,10 +507,10 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
                         model, bank, batch["x1"], batch["x2"], T=MOCO_T)
                     mask = None
             loss, top1, top5 = moco_losses(logits, mask)
-        with record_function(RANGES[1]):
+        with span(RANGES[1]):
             loss.backward()
             sum_gradients(params)
-        with record_function(RANGES[2]):
+        with span(RANGES[2]):
             optimizer.step()
             schedule.step()
             bank.momentum_update(query, MOCO_M)

@@ -22,14 +22,107 @@ Usage, from the root of a checkout (one CUDA card):
     python3 -m video_similarity_search_tpu_torch.utils.profile_classify
 """
 
+import json
+import os
+import subprocess
 import sys
+import time
 
 import numpy as np
 
-from .profile_embed import median_ms, nvidia_smi
-from .profile_train import emit, kernel_profile, stem_ms
-
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
 BATCH, T, S, CLASSES = 32, 32, 128, 101
+
+
+def emit(name, **fields):
+    print(json.dumps({"exp": name, **fields}), flush=True)
+
+
+def median_ms(fn, reps=5):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return float(np.median(out))
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def stem_ms(conv, x) -> dict:
+    """Forward and weight-gradient ms of the stem convolution ``conv`` in
+    float32 on the normalized clips ``x`` (B, T, H, W, 3)."""
+    import torch
+    import torch.nn.functional as F
+
+    inp = x.permute(0, 4, 1, 2, 3)
+    weight = conv.weight.detach().contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_(True)
+
+    def fwd():
+        return F.conv3d(inp, weight, None, conv.stride, conv.padding)
+
+    g = torch.randn_like(fwd())
+
+    def wgrad():
+        return torch.autograd.grad(fwd(), weight, g)[0]
+
+    return {"forward": median_ms(fwd), "forward_plus_wgrad": median_ms(wgrad)}
+
+
+def kernel_profile(one_step, table_name: str, steps: int = 3) -> dict:
+    """torch.profiler over ``steps`` calls of ``one_step``: device ms a
+    step by kernel (top 20) and the kernels' summed time over the window's
+    host time (the busy share); the full table goes to runs/<table_name>
+    (git-ignored)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        one_step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            one_step()
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an aten op's row repeats the device time of its kernels,
+    # and a record_function range's device-side span that of the kernels in
+    # it
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.is_user_annotation]
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    total_us = sum(e.self_device_time_total for e in events)
+    top = [{"name": e.key[:90], "device_ms_per_step":
+            e.self_device_time_total / (steps * 1e3), "calls": e.count}
+           for e in events[:20]]
+    out_dir = os.path.join(ROOT, "runs")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, table_name), "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=80))
+    return {"steps": steps, "window_ms": window_ms,
+            "device_ms_per_step": total_us / (steps * 1e3),
+            "busy_share": (total_us / 1e3) / window_ms if window_ms else None,
+            "top": top}
 
 
 def pool_inputs(model, x):
@@ -107,7 +200,7 @@ def main():
     flop = 2 * BATCH * 64 * (T * S * S // 4) * 3 * 7 * 7
     emit("stem_ms", device=smi, clips=BATCH, clip=[T, S, S, 3],
          forward_gflop=flop / 1e9,
-         **stem_ms(stem, x, cins=(3,), amp=False))
+         **stem_ms(stem, x))
     model.eval()
     emit("max_pool", device=smi, **max_pool_ms(pool_inputs(model, x)))
     del x

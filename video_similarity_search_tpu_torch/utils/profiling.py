@@ -2,16 +2,39 @@
 ``utils/profiling.py``, with ``torch.profiler`` in place of
 ``jax.profiler``).
 
-Set ``TPU.PROFILE_DIR`` and the train driver traces epoch 0's steps 5-9
-(host and, on a CUDA machine, device activity) into a Chrome trace under
-that directory; the epoch logs carry the clips/s of ``Throughput``.
+``span(name)`` marks where the port's work happens: the train steps'
+ranges (``train/steps.py::RANGES``), the batch's upload and augmentation
+and the host's read of the deferred step metrics (``train/driver.py``),
+the embedding pass's upload, forward and read-back
+(``evaluation/embed.py``) and the stems of the 3-D ResNets and SlowFast
+(``models/``). A span is a ``record_function`` range while a profiler is
+recording, so it sits on the profiler's clock beside the kernels and
+copies it launched; otherwise it costs one check.
+
+Set ``TPU.PROFILE_DIR`` and the triplet epoch traces epoch 0's steps 5-9
+(host and, on a CUDA machine, device activity, with the spans) into a
+Chrome trace under that directory; the epoch logs carry the clips/s of
+``Throughput``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
+
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range called ``name`` while a profiler is
+    recording, else one shared null context."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 class StepProfiler:
@@ -46,8 +69,6 @@ class StepProfiler:
     def close(self) -> None:
         if self._prof is None:
             return
-        import torch
-
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self._prof.__exit__(None, None, None)
@@ -59,23 +80,30 @@ class StepProfiler:
 
 
 class Throughput:
-    """Per-epoch items/s, the first step excluded (it builds
-    cuDNN plans and warms the allocator), so the rate is the steady one."""
+    """Per-epoch items/s of the steps the card has finished. Call
+    ``done(n)`` where the host has read back the metrics of steps that
+    hold ``n`` items (``n`` 0: none were read). The first call starts the clock and its items are
+    not counted: the epochs read their first step back alone, so the
+    rate leaves out that step (it builds cuDNN plans and warms the
+    allocator) and is the steady one."""
 
     def __init__(self):
         self.t0: Optional[float] = None
-        self.steps = 0
+        self.t: Optional[float] = None
         self.items = 0
 
-    def tick(self, n_items: int) -> None:
-        if self.t0 is None:
-            self.t0 = time.perf_counter()
+    def done(self, n_items: int) -> None:
+        if not n_items:
             return
-        self.steps += 1
+        now = time.perf_counter()
+        if self.t0 is None:
+            self.t0 = now
+            return
         self.items += n_items
+        self.t = now
 
     @property
     def items_per_sec(self) -> float:
-        if self.t0 is None or self.steps == 0:
+        if self.t is None or self.t <= self.t0:
             return 0.0
-        return self.items / (time.perf_counter() - self.t0)
+        return self.items / (self.t - self.t0)
