@@ -9,13 +9,24 @@ data, in phases that each print one JSON line:
   device     card name and power limit, torch/CUDA versions, kernel builds
              (nvcc, sm_90a, all sources at once) with ptxas' registers,
              spills and shared memory, and the SASS opcode counts
-             (cuobjdump; nn1_cosine must hold HGMMA and UTMALDG)
-  kernel     each hand-written kernel against its plain PyTorch version on
+             (cuobjdump; nn1_cosine must hold HGMMA and UTMALDG,
+             stem_conv3d HGMMA)
+  kernel     the 1-NN kernel against its plain PyTorch version on
              the card, at the path's shapes (ties, near ties, padding of D,
              D > 128 and ragged edges included), with its time beside the
              3xTF32 tensor-core bound and the fp32 CUDA-core bound; at 240k
              the kernel's picks and level-0 partition are held to an fp64
              1-NN (the plain version's are reported beside them)
+  stem       R3D-18's stem convolution kernel (ops/stem_conv.py) at the
+             triplet step's 96 and the embedding batch's 256 clips of
+             16x128x128: its ms beside the bf16 bound, the plain version's
+             (F.conv3d on the bf16 operands), and as library_ms the cuDNN
+             7x7 call under autocast that the port made before and the
+             space-to-depth cuDNN form (neither of which the port calls on
+             its bf16 path); both sizes held to a float32 conv3d of the
+             same bf16 operands within one bf16 unit. Its launches are
+             counted on the main path: in the embed phase's passes and
+             the train_step phase's timed steps (one a bf16 forward)
   embed      get_embeddings_and_labels over 4096 train clips (batches of
              256) and a multi-window test split; clips/s, peak memory, and
              the bf16 embeddings against the fp32 forward
@@ -232,7 +243,12 @@ SEED = 0
 KERNELS = {
     "nn1_cosine": ("video_similarity_search_tpu_torch/csrc/nn1_cosine.cu",
                    "video_similarity_search_tpu/ops/pallas_knn.py:37"),
+    "stem_conv3d": ("video_similarity_search_tpu_torch/csrc/stem_conv3d.cu",
+                    None),  # XLA's convolution in the JAX package
 }
+# R3D-18's stem at the cells' shapes: the triplet step's and an embedding
+# batch's clips of 16x128x128
+STEM_CLIPS = (96, 256)
 
 # nn1_cosine's fp32-accurate products take three TF32 passes (3xTF32)
 TF32_PASSES = 3
@@ -359,9 +375,14 @@ def phase_device():
     sass = {name: sass_opcodes(lib) for name, lib in libs.items()}
     smem = cuda_build.load("nn1_cosine").nn1_cosine_smem_bytes
     smem_bytes = {f"nn1_cosine d_pad={d}": smem(d) for d in (128, 256)}
+    stem_smem = cuda_build.load("stem_conv3d").stem_conv3d_smem_bytes
+    smem_bytes.update({f"stem_conv3d kT={kt}": stem_smem(kt)
+                       for kt in (1, 3, 5, 7)})
     for op in ("HGMMA", "UTMALDG"):
         check(sass["nn1_cosine"].get(op, 0) > 0,
               f"nn1_cosine's SASS has {op} (tensor cores fed by TMA)")
+    check(sass["stem_conv3d"].get("HGMMA", 0) > 0,
+          "stem_conv3d's SASS has HGMMA (the tensor cores)")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls in IEEE float32 (allow_tf32 off)")
     emit("device", nvidia_smi=smi, torch=torch.__version__,
@@ -461,6 +482,105 @@ def phase_kernel_nn1(smi: str, sass: dict, bank: np.ndarray):
     return shapes
 
 
+def stem_in_clip_taps(t: int, kt: int) -> int:
+    """The (output frame, kernel frame) pairs of a clip of ``t`` frames
+    whose input frame lies inside the clip: the kernel skips the temporal
+    zero padding, so only these count as work (100 of 112 at T 16, kT 7)."""
+    return sum(min(t - 1, i + kt // 2) - max(0, i - kt // 2) + 1
+               for i in range(t))
+
+
+def within_one_bf16_unit(got, ref, chunk: int = 32) -> dict:
+    """``got`` against the float32 ``ref``, ``chunk`` clips at a time:
+    within one bf16 unit of each output, and 2^-16 of the largest (near-zero
+    outputs, where the two float32 sums' order decides)."""
+    import torch
+
+    floor = 2.0 ** -16 * float(ref.abs().max())
+    worst, over = 0.0, 0
+    for i in range(0, ref.shape[0], chunk):
+        r = ref[i:i + chunk]
+        err = (got[i:i + chunk].float() - r).abs()
+        _, e = torch.frexp(r.abs())
+        over += int((err > torch.ldexp(torch.ones_like(r), e - 8)
+                     + floor).sum())
+        worst = max(worst, float(err.max()))
+    return {"max_abs_err": worst, "max_abs_ref": float(ref.abs().max()),
+            "over_one_bf16_unit": over}
+
+
+def phase_stem(smi: str, sass: dict):
+    """The stem convolution kernel (ops/stem_conv.py) at STEM_CLIPS clips of
+    16x128x128 from seeded uint8 clips and He-normal weights: its ms beside
+    the bf16 bound (the in-clip taps' operations at the bf16 peak), the
+    plain version's and the library calls' ms, and its output at each size
+    against a float32 conv3d (TF32 off) of the same bf16 operands
+    (``within_one_bf16_unit``). -> rows."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+    from video_similarity_search_tpu_torch.models.layers import Conv3d
+    from video_similarity_search_tpu_torch.models.resnet3d import (
+        conv1_kernel_to_s2d, space_to_depth)
+    from video_similarity_search_tpu_torch.ops import stem_conv
+    from video_similarity_search_tpu_torch.utils.flops import peaks_for
+
+    variant, peaks = peaks_for(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.manual_seed(SEED)
+    conv = Conv3d(3, 64, (7, 7, 7), (1, 2, 2)).cuda().to(
+        memory_format=torch.channels_last_3d)
+    s2d = Conv3d(12, 64, (7, 4, 4), 1, padding=(3, 2, 2)).cuda().to(
+        memory_format=torch.channels_last_3d)
+    with torch.no_grad():
+        s2d.weight.copy_(conv1_kernel_to_s2d(conv.weight))
+    wb = conv.weight.detach().to(torch.bfloat16)
+    rng = np.random.default_rng(SEED)
+    rows = []
+    for clips in STEM_CLIPS:
+        x = normalize_only(torch.from_numpy(rng.integers(
+            0, 256, (clips, 16, 128, 128, 3), np.uint8)).cuda(),
+            dataset="ucf101")
+        xb = x.to(torch.bfloat16).contiguous()
+
+        def cudnn_7x7():
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return conv(x.permute(0, 4, 1, 2, 3))
+
+        def cudnn_s2d():
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                return s2d(space_to_depth(x).permute(0, 4, 1, 2, 3))[
+                    ..., :64, :64]
+
+        row = {"clips": clips, "shape": [clips, 16, 128, 128, 3]}
+        got = stem_conv.stem_conv3d_cuda(xb, wb)
+        ref = stem_conv.conv3d_plain(xb.float(), wb.float())
+        row.update(within_one_bf16_unit(got, ref))
+        check(row["over_one_bf16_unit"] == 0, "stem_conv3d within one "
+              f"bf16 unit of a float32 conv3d at {clips} clips ({row})")
+        del got, ref
+        ops = (2.0 * clips * 64 * 64 * 64 * 3 * 7 * 7
+               * stem_in_clip_taps(16, 7))
+        nbytes = xb.numel() * 2 + clips * 16 * 64 * 64 * 64 * 2
+        row.update(bound(ops, nbytes, "bfloat16", peaks))
+        row["ms"] = time_ms(lambda: stem_conv.stem_conv3d_cuda(xb, wb), 10)
+        row["tflops"] = ops / (row["ms"] * 1e-3) / 1e12
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["plain_ms"] = time_ms(lambda: stem_conv.conv3d_plain(xb, wb), 3)
+        row["library_ms"] = {"cudnn_7x7_autocast": time_ms(cudnn_7x7, 3),
+                             "cudnn_s2d_autocast": time_ms(cudnn_s2d, 3)}
+        row["peak_variant"] = variant
+        row["sass"] = key_opcodes(sass["stem_conv3d"])
+        rows.append(row)
+        emit("stem", name="stem_conv3d", **row)
+        del x, xb
+        torch.cuda.empty_cache()
+    check(rows[-1]["ms"] < rows[-1]["library_ms"]["cudnn_s2d_autocast"],
+          "stem_conv3d is faster than the s2d cuDNN form at "
+          f"{STEM_CLIPS[-1]} clips")
+    return rows
+
+
 def fp64_referee(xn, ki, kd, pi, pd, tile: int = 512) -> dict:
     """Holds the kernel's 240k self-query result (``ki``, ``kd``) to an
     fp64 1-NN: a pick may differ from it only where the two lie within 1e-6
@@ -543,11 +663,17 @@ def make_batches(rng, n_items, items_per_batch, windows, t, s, n_cls):
 
 
 def phase_embed():
+    """The embedding pass over 4096 train clips and a multi-window test
+    split at the Kinetics config's full width, and the stem kernel's
+    launches in it: one for each bf16 forward (the model's forward calls,
+    counted by a hook), none in the float32 forward.
+    -> (model, cfg, train embeddings, cache dir, launches)."""
     import torch
 
     from video_similarity_search_tpu_torch.evaluation.embed import (
         cache_embeddings, get_embeddings_and_labels)
     from video_similarity_search_tpu_torch.models import model_selector
+    from video_similarity_search_tpu_torch.ops import stem_conv
     from video_similarity_search_tpu_torch.train.steps import make_embed_step
     from video_similarity_search_tpu_torch.data.augment import normalize_only
 
@@ -562,19 +688,34 @@ def phase_embed():
     test = make_batches(rng, n_test, 96, rng.integers(1, 5, n_test), t, s,
                         n_cls)
 
+    forwards = []
+    hook = model.register_forward_pre_hook(lambda *_: forwards.append(1))
+    launches = {}
     torch.cuda.reset_peak_memory_stats()
     timed = Epochs(train, 1)
+    stem_conv.LAUNCHES = 0
     t0 = time.perf_counter()
     tr_emb, tr_lbl, tr_idx = get_embeddings_and_labels(
         model, cfg, timed, split="train", verbose=False, device="cuda")
     t_end = time.perf_counter()
+    launches["train_pass"] = stem_conv.LAUNCHES
+    launches["train_pass_forwards"] = len(forwards)
     steady_clips = sum(len(b["clip"]) for b in train[1:])
     clips_per_s = steady_clips / (t_end - timed.stamps[1])
     first_batch_s = timed.stamps[1] - t0
+    forwards.clear()
+    stem_conv.LAUNCHES = 0
     te_emb, te_lbl, te_idx = get_embeddings_and_labels(
         model, cfg, test, split="test", batch_pad=256, verbose=False,
         device="cuda")
+    launches["test_pass"] = stem_conv.LAUNCHES
+    launches["test_pass_forwards"] = len(forwards)
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(launches["train_pass"] == launches["train_pass_forwards"]
+          == len(train), f"one stem_conv3d launch a batch of the train "
+          f"pass ({launches}, {len(train)} batches)")
+    check(launches["test_pass"] == launches["test_pass_forwards"] > 0,
+          f"one stem_conv3d launch a forward of the test pass ({launches})")
 
     check(tr_emb.shape == (4096, 128), f"train embeddings {tr_emb.shape}")
     check(te_emb.shape == (n_test, 128), f"test embeddings {te_emb.shape}")
@@ -587,7 +728,12 @@ def phase_embed():
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     step32 = make_embed_step(cfg32, model, device="cuda")
     x = normalize_only(torch.from_numpy(train[0]["clip"]).cuda(), "kinetics")
+    stem_conv.LAUNCHES = 0
     ref = step32(x).cpu().numpy()
+    launches["float32_forward"] = stem_conv.LAUNCHES
+    hook.remove()
+    check(launches["float32_forward"] == 0, "the float32 forward keeps "
+          "conv1 (no stem_conv3d launch)")
     a = tr_emb[:256] / np.linalg.norm(tr_emb[:256], axis=1, keepdims=True)
     b = ref / np.linalg.norm(ref, axis=1, keepdims=True)
     max_cos = float(np.max(1.0 - np.sum(a * b, axis=1)))
@@ -604,8 +750,9 @@ def phase_embed():
          test_clips=int(sum(b["window_counts"][:b["__size__"]].sum()
                             for b in test)),
          clips_per_s_steady=clips_per_s, first_batch_s=first_batch_s,
-         peak_mem_gib=peak_gib, max_cos_dist_vs_fp32=max_cos)
-    return model, cfg, tr_emb, cache
+         peak_mem_gib=peak_gib, max_cos_dist_vs_fp32=max_cos,
+         stem_conv3d_launches=launches)
+    return model, cfg, tr_emb, cache, launches
 
 
 def phase_cluster(bank: np.ndarray, bank_lbl: np.ndarray, emb4096):
@@ -1538,6 +1685,7 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     from video_similarity_search_tpu_torch.train.steps import RANGES
 
     from video_similarity_search_tpu_torch.data.augment import train_augment
+    from video_similarity_search_tpu_torch.ops import stem_conv
     from video_similarity_search_tpu_torch.train.driver import (
         _microbatch_leaf, step_seed)
 
@@ -1569,11 +1717,13 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     whole = []
+    stem_conv.LAUNCHES = 0
     for i in range(TIMED_STEPS):
         t0 = time.perf_counter()
         step(augment(10 + i), gen)
         torch.cuda.synchronize()
         whole.append((time.perf_counter() - t0) * 1e3)
+    launches = stem_conv.LAUNCHES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     seeds = iter(range(20, 20 + TIMED_STEPS))
 
@@ -1588,7 +1738,8 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     out = {"accum_steps": accum, "step_ms": float(np.median(whole)),
            "step_ms_all": whole, "clips": clips,
            "clips_per_s": clips / (float(np.median(whole)) / 1e3),
-           "peak_mem_gib": peak}
+           "peak_mem_gib": peak, "stem_conv3d_launches": launches,
+           "forwards": TIMED_STEPS * accum}
     if split:
         out["device_split_ms"] = split
     del model, opt, step
@@ -1643,6 +1794,11 @@ def phase_train_step():
     vs_fp32 = bf16_vs_fp32(cfg, init, host)
     torch.cuda.empty_cache()
     timing = [time_steps(cfg, init, host, accum) for accum in (1, 2)]
+    for row in timing:  # one train-mode forward a microbatch
+        check(row["stem_conv3d_launches"] == row["forwards"], "one "
+              "stem_conv3d launch a bf16 forward of the triplet step "
+              f"(ACCUM_STEPS {row['accum_steps']}: "
+              f"{row['stem_conv3d_launches']} in {row['forwards']})")
     torch.cuda.empty_cache()
     learn = learning_check(cfg, init, rng)
     emit("train_step", config="configs/resnet_ucf_itercluster_flow.yaml",
@@ -1651,7 +1807,9 @@ def phase_train_step():
          strategy=cfg.DATASET.SAMPLING_STRATEGY, lr=cfg.OPTIM.LR,
          momentum=cfg.OPTIM.MOMENTUM, fp32_card_vs_cpu=vs_cpu,
          bf16_vs_fp32=vs_fp32, timing=timing, learning=learn)
-    return timing[0]["clips_per_s"]
+    return timing[0]["clips_per_s"], {
+        f"accum_{row['accum_steps']}": row["stem_conv3d_launches"]
+        for row in timing}
 
 
 def run_cli(cmd, what: str, timeout: int = 900):
@@ -2278,9 +2436,10 @@ TRAIN_OPTIONS = {
 
 def stem_vs_7x7(cfg7, init7, cfg_s2d, init_s2d, host):
     """The space-to-depth stem against the 7x7 stem it was made from, on
-    the step's 96 normalized clips: the forward's ms of each (as the step
-    runs it, bf16 autocast, channels_last_3d), and the s2d output against
-    the 7x7 one in float32 (TF32 off) and in bf16."""
+    the step's 96 normalized clips: the forward's ms of each ``conv1``
+    call under bf16 autocast in channels_last_3d (the 7x7's is cuDNN's,
+    which the bf16 step no longer calls: it runs ``stem_conv3d``), and the
+    s2d output against the 7x7 one in float32 (TF32 off) and in bf16."""
     import torch
 
     from video_similarity_search_tpu_torch.data.augment import normalize_only
@@ -4609,7 +4768,8 @@ def main() -> int:
     smi, sass = run("device", phase_device)
     bank, bank_lbl = mixture(240_000, seed=0)
     shapes = run("kernel", phase_kernel_nn1, smi, sass, bank)
-    model, cfg, emb4096, cache = run("embed", phase_embed)
+    stem_rows = run("stem", phase_stem, smi, sass)
+    model, cfg, emb4096, cache, embed_launches = run("embed", phase_embed)
     finch_launches = run("cluster", phase_cluster, bank, bank_lbl, emb4096)
     run("retrieval", phase_retrieval, model, cfg, cache, bank)
     check(fused_knn.LAUNCHES == 0, "retrieval launches no 1-NN kernel")
@@ -4624,7 +4784,7 @@ def main() -> int:
     del bank, bank_lbl
     run("cli", phase_cli, ucf, paths, ucf_model, emb)
     del ucf_model, train_loader
-    step_rate = run("train_step", phase_train_step)
+    step_rate, step_launches = run("train_step", phase_train_step)
     run("train_cli", phase_train_cli, paths, step_rate)
     tools_launches = run("tools", phase_tools, paths)
     run("train_options", phase_train_options)
@@ -4663,7 +4823,20 @@ def main() -> int:
         "shape": main_shape["shape"], "shapes": shapes,
         "dist_launches_per_rank": dist_launches,
         "lmdb_launches": lmdb_launches, "iic_launches": iic_launches,
-        "tools_launches": tools_launches}]}),
+        "tools_launches": tools_launches}, {
+        "name": "stem_conv3d", "route": "cuda",
+        "source": KERNELS["stem_conv3d"][0],
+        "replaces": KERNELS["stem_conv3d"][1],
+        "launches": {"embed": embed_launches,
+                     f"train_step ({TIMED_STEPS} steps)": step_launches},
+        "ms": stem_rows[-1]["ms"],
+        "plain_ms": stem_rows[-1]["plain_ms"],
+        "bound_ms": stem_rows[-1]["bound_ms"],
+        "bound_by": stem_rows[-1]["bound_by"],
+        "library_ms": stem_rows[-1]["library_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in stem_rows),
+        "sass": key_opcodes(sass["stem_conv3d"]),
+        "shape": stem_rows[-1]["shape"], "shapes": stem_rows}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

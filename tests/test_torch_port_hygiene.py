@@ -5,8 +5,9 @@ serving, clustering, training, contrastive, MoCo and classification entry
 points alike) nor to one process (a training launch over several ranks
 whose rendezvous fails raises within its timeout), its own copy of the
 native decoder, and (on a CUDA machine only) the CUDA 1-NN kernel agrees
-with its plain version, the pinned side-stream upload delivers the host
-batches, the triplet and MoCo steps on the card equal the steps on the
+with its plain version, the stem convolution kernel agrees with a float32
+convolution of its operands and keeps cuDNN's weight gradient, the pinned
+side-stream upload delivers the host batches, the triplet and MoCo steps on the card equal the steps on the
 CPU, and a world-1 NCCL step equals the step with no process group."""
 
 import argparse
@@ -233,6 +234,118 @@ def test_nn1_cosine_kernel_matches_plain_version_on_the_card():
         diff = ki != pi
         d_pick = 1.0 - (xn[diff] * yn[ki[diff]]).sum(1)
         assert bool(((d_pick - pd[diff]).abs() <= 1e-6).all())
+
+
+def _bf16_unit(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |v| (8 significand bits)."""
+    _, e = torch.frexp(v.abs())
+    return torch.ldexp(torch.ones_like(v), e - 8)
+
+
+@pytest.mark.gpu
+def test_stem_conv3d_kernel_matches_float32_conv3d_on_the_card():
+    """The kernel against cuDNN's float32 convolution (TF32 off) of the same
+    bf16 operands: within one bf16 unit of each output, and a floor of
+    2^-16 of the largest output where the two float32 sums' own order
+    decides a near-zero output. The step's 96 clips, the embedding pass's
+    ragged 65, kT 1, 3 and 5, odd H and W, and 128 output channels from a
+    view that starts off the 16 bytes the kernel's copies need."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from video_similarity_search_tpu_torch.ops import stem_conv
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        for b, t, h, w, kt, cout in [(96, 16, 128, 128, 7, 64),
+                                     (65, 16, 128, 128, 7, 64),
+                                     (4, 16, 128, 128, 3, 64),
+                                     (4, 16, 128, 128, 5, 64),
+                                     (4, 16, 128, 128, 1, 64),
+                                     (3, 7, 37, 45, 7, 64),
+                                     (1, 5, 17, 23, 1, 64),
+                                     (2, 5, 17, 24, 3, 128)]:
+            x = torch.randn(b, t, h, w, 3, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            wt = (0.05 * torch.randn(cout, 3, kt, 7, 7, device="cuda",
+                                     generator=gen)).to(torch.bfloat16)
+            if b == 2:  # a view that starts 2 bytes into its storage
+                x = torch.cat([x.new_zeros(1), x.flatten()])[1:].view(
+                    x.shape)
+            got = stem_conv.stem_conv3d_cuda(x, wt)
+            ref = stem_conv.conv3d_plain(x.float(), wt.float())
+            torch.cuda.synchronize()
+            assert got.shape == ref.shape
+            assert got.is_contiguous(memory_format=torch.channels_last_3d)
+            err = (got.float() - ref).abs()
+            tol = _bf16_unit(ref) + 2.0 ** -16 * ref.abs().max()
+            assert bool((err <= tol).all()), (b, t, h, w, kt, cout,
+                                              float(err.max()))
+            del x, got, ref, err, tol
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+@pytest.mark.gpu
+def test_stem_conv3d_weight_gradient_is_the_cudnn_paths():
+    """Through the autograd Function the bf16 stem's weight gradient is the
+    one autocast's cuDNN convolution gives (the same weight-gradient call),
+    and the forward matches it within the float32 sums' order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from video_similarity_search_tpu_torch.models.layers import Conv3d
+    from video_similarity_search_tpu_torch.ops import stem_conv
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.manual_seed(0)
+        conv = Conv3d(3, 64, (7, 7, 7), (1, 2, 2)).cuda().to(
+            memory_format=torch.channels_last_3d)
+        x = torch.randn(8, 16, 64, 64, 3, device="cuda")
+        g = torch.randn(8, 16, 32, 32, 64, device="cuda").to(
+            torch.bfloat16).permute(0, 4, 1, 2, 3)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            old = conv(x.permute(0, 4, 1, 2, 3))
+        old.backward(g)
+        old_grad, conv.weight.grad = conv.weight.grad.clone(), None
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            new = stem_conv.stem_conv3d(x, conv.weight)
+        new.backward(g)
+        torch.cuda.synchronize()
+        assert new.dtype == old.dtype == torch.bfloat16
+        torch.testing.assert_close(conv.weight.grad, old_grad, rtol=0,
+                                   atol=0)
+        new, old = new.detach().float(), old.detach().float()
+        assert float((new - old).abs().max()) <= 2.0 ** -7 * float(
+            old.abs().max())
+    finally:
+        torch.backends.cudnn.deterministic = det
+
+
+@pytest.mark.gpu
+def test_r3d18_bf16_forward_launches_the_stem_kernel_once():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from video_similarity_search_tpu_torch.models import generate_model
+    from video_similarity_search_tpu_torch.ops import stem_conv
+    torch.manual_seed(0)
+    model = generate_model(18, no_max_pool=True).cuda().to(
+        memory_format=torch.channels_last_3d)
+    x = torch.randn(2, 16, 64, 64, 3, device="cuda")
+    for train in (True, False):
+        model.train(train)
+        before = stem_conv.LAUNCHES
+        with torch.set_grad_enabled(train), torch.autocast(
+                "cuda", dtype=torch.bfloat16):
+            out = model(x)
+        if train:
+            out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert stem_conv.LAUNCHES == before + 1, train
+    before = stem_conv.LAUNCHES
+    with torch.no_grad():
+        model(x)  # float32 compute keeps conv1
+    assert stem_conv.LAUNCHES == before
 
 
 @pytest.mark.gpu

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, as inline PTX:
-// mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// m64n128k8 TF32 wgmma, and setmaxnreg. Each wrapper is one instruction
-// (or a polling loop around one); the PTX ISA is the reference.
+// mbarriers, TMA tile loads, cp.async, wgmma shared-memory descriptors,
+// the m64n128k8 TF32 and m64n64k16 bf16 wgmma, and setmaxnreg. Each
+// wrapper is one instruction (or a polling loop around one); the PTX ISA
+// is the reference.
 
 #pragma once
 
@@ -101,9 +102,10 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // keeps the compiler from moving reads of the accumulator across a wait
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (64 x 128, fp32, the warpgroup's fragment) = A (64 x 8) . B (128 x 8)^T
@@ -137,6 +139,72 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// Descriptor of a K-major operand with no swizzle: 8-row x 16-byte core
+// matrices of 128 contiguous bytes, `lbo` bytes apart along K and `sbo`
+// bytes apart along M/N. The start needs only 16-byte alignment.
+__device__ __forceinline__ uint64_t interleave_desc(const void* p,
+                                                    uint32_t lbo,
+                                                    uint32_t sbo) {
+  const uint32_t a = smem_u32(p);
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d (64 x 64, fp32) = A (64 x 16) . B (64 x 16)^T + (scale_d ? d : 0), bf16
+// operands: A from registers, B K-major in shared memory. A's fragment is
+// mma.m16n8k16's, warp w of the warpgroup holding rows 16w..16w+15: thread
+// t holds a[0] = (row r, k 2q..2q+1), a[1] = (r + 8, same k), a[2] = (r,
+// k 2q+8..2q+9), a[3] = (r + 8, same k), with r = 16w + (t%32)/4, q = t%4,
+// the lower k in the low half of each register. d's fragment as above:
+// d[4j + 2h + e] is (row r + 8h, column 8j + 2q + e).
+__device__ __forceinline__ void wgmma_m64n64k16_bf16_rs(float (&d)[32],
+                                                        const uint32_t (&a)[4],
+                                                        uint64_t desc_b,
+                                                        int scale_d) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "setp.ne.b32 p, %37, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// ---- cp.async (per-thread asynchronous copies) ------------------------------
+
+// copies 16 bytes from global to shared memory; with src_bytes 0 it reads
+// nothing and writes 16 zero bytes
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src,
+                                            int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 // ---- register rebalancing between warpgroups --------------------------------

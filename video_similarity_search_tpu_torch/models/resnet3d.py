@@ -20,6 +20,10 @@ Options, as in the JAX module:
 * ``classifier`` (with ``dropout``): class logits from the pooled features
   through ``linear`` (normal(0.01) weights, zero bias).
 * ``predict_temporal_ds``: ``(projection, ds_logits)``.
+* The 7x7 stem ``conv1`` runs the hand-written tensor-core kernel of
+  ``ops/stem_conv.py`` on CUDA under bf16 autocast (``stem_conv.engages``
+  decides from the convolution, the device and the autocast dtype);
+  float32 compute, the CPU and ``stem_s2d`` call ``conv1``.
 * ``stem_s2d``: space-to-depth and a stride-1 (kT, 4, 4) convolution over
   4C channels, equal to the 7x7 stride-2 stem (``conv1_kernel_to_s2d``
   maps its weights). Its spatial padding is (2, 1); torch pads
@@ -43,6 +47,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..ops import stem_conv
 from ..utils.profiling import span
 from .heads import Dropout
 from .layers import (BatchNorm, Conv3d, ProjectionHead, frozen_stats,
@@ -303,6 +308,9 @@ class ResNet3D(nn.Module):
                 h = space_to_depth(x).permute(0, 4, 1, 2, 3)
                 out_h, out_w = h.shape[-2:]
                 h = self.conv1(h)[..., :out_h, :out_w]
+            elif stem_conv.engages(self.conv1, x.device.type,
+                                   stem_conv.autocast_dtype(x.device.type)):
+                h = stem_conv.stem_conv3d(x, self.conv1.weight)
             else:
                 h = self.conv1(x.permute(0, 4, 1, 2, 3))  # channels_last_3d
             h = F.relu(self.bn1(h))
