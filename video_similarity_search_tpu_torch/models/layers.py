@@ -18,6 +18,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import dist as pdist
+from ..utils.profiling import span
+
+# the span around each all-reduce of BatchNorm's train-mode statistics
+# (and of their gradients) over a process group
+BN_STATS = "dist.bn_stats"
 
 IntOr3 = Union[int, Sequence[int]]
 
@@ -68,10 +73,12 @@ class _SyncBatchNorm(torch.autograd.Function):
         acc = torch.promote_types(x.dtype, torch.float32)
         with torch.autocast(x.device.type, enabled=False):
             xf = x.to(acc)
-            n = torch.tensor([x.numel() // x.shape[1]], dtype=acc,
-                             device=x.device)
-            sums = pdist.all_reduce_sum(torch.cat([
-                xf.sum(dims), (xf * xf).sum(dims), n]))
+            # filled on the device: a tensor built from a host list would
+            # be a blocking copy, one host wait a layer
+            n = xf.new_full((1,), x.numel() // x.shape[1])
+            local = torch.cat([xf.sum(dims), (xf * xf).sum(dims), n])
+            with span(BN_STATS):
+                sums = pdist.all_reduce_sum(local)
             c = x.shape[1]
             count = sums[2 * c]
             mean = sums[:c] / count
@@ -97,7 +104,9 @@ class _SyncBatchNorm(torch.autograd.Function):
             local = torch.cat([dyf.sum(dims), (dyf * xhat).sum(dims)])
             c = x.shape[1]
             dbias, dweight = local[:c].clone(), local[c:].clone()
-            total = pdist.all_reduce_sum(local) / ctx.count
+            with span(BN_STATS):
+                total = pdist.all_reduce_sum(local)
+            total = total / ctx.count
             dx = (dyf - total[:c].view(shape)
                   - xhat * total[c:].view(shape)) \
                 * (weight.to(acc) * invstd).view(shape)
@@ -254,11 +263,15 @@ class SubBatchNorm(nn.Module):
                      ) // (total // s)
         count = (total // s) * per_item
         zeros = xf.new_zeros((s, xf.shape[1]))
-        mean = pdist.all_reduce_sum(zeros.index_add(
-            0, row_group, xf.sum(dim=(2, 3, 4)))) / count
+        sums = zeros.index_add(0, row_group, xf.sum(dim=(2, 3, 4)))
+        with span(BN_STATS):
+            sums = pdist.all_reduce_sum(sums)
+        mean = sums / count
         dev = xf - mean[row_group][..., None, None, None]
-        var = pdist.all_reduce_sum(zeros.index_add(
-            0, row_group, dev.square().sum(dim=(2, 3, 4)))) / count
+        sums = zeros.index_add(0, row_group, dev.square().sum(dim=(2, 3, 4)))
+        with span(BN_STATS):
+            sums = pdist.all_reduce_sum(sums)
+        var = sums / count
         return mean, var, row_group
 
 

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel import gather_rows
+from ..utils.profiling import span
 from .heads import S3DEmbedder
 from .layers import frozen_stats
 
@@ -81,34 +82,40 @@ class MoCoBank(nn.Module):
     def keys(self, x: torch.Tensor) -> torch.Tensor:
         """The key encoder's L2-normalized float32 embeddings of ``x``, in
         train mode without touching its running statistics, without
-        gradients."""
-        with torch.no_grad(), frozen_stats(self.encoder_k):
+        gradients (span ``moco.keys``)."""
+        with span("moco.keys"), torch.no_grad(), \
+                frozen_stats(self.encoder_k):
             self.encoder_k.train()
             k = self.encoder_k(x)
-        k = k[0] if isinstance(k, tuple) else k
-        return _l2norm(k.float())
+            k = k[0] if isinstance(k, tuple) else k
+            return _l2norm(k.float())
 
     @torch.no_grad()
     def momentum_update(self, query: nn.Module, m: float = 0.999) -> None:
         """k <- m k + (1 - m) q over the parameters (reference
-        models/infoNCE.py:86-90); the buffers stay."""
-        for pk, pq in zip(self.encoder_k.parameters(), query.parameters()):
-            pk.copy_(m * pk + (1.0 - m) * pq)
+        models/infoNCE.py:86-90); the buffers stay (span
+        ``moco.momentum``)."""
+        with span("moco.momentum"):
+            for pk, pq in zip(self.encoder_k.parameters(),
+                              query.parameters()):
+                pk.copy_(m * pk + (1.0 - m) * pq)
 
     @torch.no_grad()
     def dequeue_and_enqueue(self, keys: torch.Tensor,
                             labels: Optional[torch.Tensor] = None) -> None:
         """Write ``keys`` (and ``labels``) at the pointer of the ring buffer
         and advance it (reference models/infoNCE.py:92-106); K must be a
-        multiple of the batch, as the reference asserts."""
+        multiple of the batch, as the reference asserts (span
+        ``moco.enqueue``)."""
         bsz, k_total = keys.shape[0], self.queue.shape[0]
         assert k_total % bsz == 0, f"queue size {k_total} % batch {bsz} != 0"
-        slots = self.queue_ptr + torch.arange(bsz, device=keys.device)
-        self.queue.index_copy_(0, slots, keys.to(self.queue.dtype))
-        if labels is not None and self.queue_labels is not None:
-            self.queue_labels.index_copy_(
-                0, slots, labels.to(self.queue_labels.dtype))
-        self.queue_ptr.copy_((self.queue_ptr + bsz) % k_total)
+        with span("moco.enqueue"):
+            slots = self.queue_ptr + torch.arange(bsz, device=keys.device)
+            self.queue.index_copy_(0, slots, keys.to(self.queue.dtype))
+            if labels is not None and self.queue_labels is not None:
+                self.queue_labels.index_copy_(
+                    0, slots, labels.to(self.queue_labels.dtype))
+            self.queue_ptr.copy_((self.queue_ptr + bsz) % k_total)
 
 
 def infonce_forward(encoder: nn.Module, bank: MoCoBank, x1: torch.Tensor,

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils.profiling import span
 from .layers import BatchNorm, Conv3d, IntOr3
 
 
@@ -138,8 +139,9 @@ class S3D(nn.Module):
         assert x.ndim == 5, f"expected (B,T,H,W,C), got {tuple(x.shape)}"
         shape = tuple(x.shape)
         h = x.permute(0, 4, 1, 2, 3)  # (B,C,T,H,W), channels_last_3d memory
-        h = self.Conv_1a(h)
-        h = F.max_pool3d(h, (1, 3, 3), (1, 2, 2), (0, 1, 1))
+        with span("model.stem"):
+            h = self.Conv_1a(h)
+            h = F.max_pool3d(h, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         h = self.Conv_2c(self.Conv_2b(h))
         h = F.max_pool3d(h, (1, 3, 3), (1, 2, 2), (0, 1, 1))
         h = self.Mixed_3c(self.Mixed_3b(h))

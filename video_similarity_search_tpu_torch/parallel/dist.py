@@ -30,6 +30,8 @@ from typing import Iterable, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 # rendezvous and collective timeout: a rank that dies must not leave the
 # others blocked forever
 DEFAULT_TIMEOUT = timedelta(seconds=1800)
@@ -216,22 +218,24 @@ def gather_parts(x: torch.Tensor, parts: int = 1) -> torch.Tensor:
 
 def sum_gradients(params: Iterable[torch.nn.Parameter]) -> None:
     """All-reduce (sum) the parameters' gradients in place, one flat
-    buffer per dtype. A no-op with no group up."""
+    buffer per dtype (span ``dist.sum_gradients``). A no-op with no group
+    up."""
     if not is_active():
         return
-    by_dtype = {}
-    for p in params:
-        if p.grad is not None:
-            by_dtype.setdefault((p.grad.dtype, p.grad.device), []).append(
-                p.grad)
-    for grads in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        _all_reduce_(flat)
-        offset = 0
-        for g in grads:
-            n = g.numel()
-            g.copy_(flat[offset:offset + n].view(g.shape))
-            offset += n
+    with span("dist.sum_gradients"):
+        by_dtype = {}
+        for p in params:
+            if p.grad is not None:
+                by_dtype.setdefault((p.grad.dtype, p.grad.device),
+                                    []).append(p.grad)
+        for grads in by_dtype.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            _all_reduce_(flat)
+            offset = 0
+            for g in grads:
+                n = g.numel()
+                g.copy_(flat[offset:offset + n].view(g.shape))
+                offset += n
 
 
 def agree(value: float) -> bool:
