@@ -27,6 +27,15 @@ data, in phases that each print one JSON line:
              same bf16 operands within one bf16 unit. Its launches are
              counted on the main path: in the embed phase's passes and
              the train_step phase's timed steps (one a bf16 forward)
+  stem_wgrad S3D's float32 stem weight gradient (ops/stem_wgrad.py) at the
+             MoCo cell's 32 query clips of 32x128x128: the kernel's ms
+             beside the FMA bound, the plain version's (which on the card
+             is cuDNN's call of the path before) and cuDNN's on NCDHW
+             copies; its worst error and cuDNN's against a float64
+             unfold + matmul (the kernel's no larger), ragged shapes held
+             to float64, two calls bitwise equal, and its launches on the
+             main path: 1 a float32 MoCo step, 0 in the key forward and a
+             bf16 step, and by classifier mode (last / ft / all)
   embed      get_embeddings_and_labels over 4096 train clips (batches of
              256) and a multi-window test split; clips/s, peak memory, and
              the bf16 embeddings against the fp32 forward
@@ -245,10 +254,22 @@ KERNELS = {
                    "video_similarity_search_tpu/ops/pallas_knn.py:37"),
     "stem_conv3d": ("video_similarity_search_tpu_torch/csrc/stem_conv3d.cu",
                     None),  # XLA's convolution in the JAX package
+    "stem_wgrad_f32": (
+        "video_similarity_search_tpu_torch/csrc/stem_wgrad_f32.cu",
+        None),  # XLA's convolution gradient in the JAX package
 }
 # R3D-18's stem at the cells' shapes: the triplet step's and an embedding
 # batch's clips of 16x128x128
 STEM_CLIPS = (96, 256)
+
+# S3D's stem weight gradient at the MoCo cell's query clips: (B, T, H, W),
+# and ragged shapes (odd H and W, W not a multiple of 4, Cout 128) held to
+# float64: (B, T, H, W, Cout)
+STEM_WGRAD_SHAPE = (32, 32, 128, 128)
+STEM_WGRAD_RAGGED = ((3, 5, 37, 45, 64), (2, 3, 17, 16, 128),
+                     (1, 2, 9, 70, 64))
+# the ragged shapes' worst error, as a share of the largest gradient
+STEM_WGRAD_RAGGED_TOL = 1e-5
 
 # nn1_cosine's fp32-accurate products take three TF32 passes (3xTF32)
 TF32_PASSES = 3
@@ -378,11 +399,17 @@ def phase_device():
     stem_smem = cuda_build.load("stem_conv3d").stem_conv3d_smem_bytes
     smem_bytes.update({f"stem_conv3d kT={kt}": stem_smem(kt)
                        for kt in (1, 3, 5, 7)})
+    smem_bytes["stem_wgrad_f32"] = cuda_build.load(
+        "stem_wgrad_f32").stem_wgrad_f32_smem_bytes()
     for op in ("HGMMA", "UTMALDG"):
         check(sass["nn1_cosine"].get(op, 0) > 0,
               f"nn1_cosine's SASS has {op} (tensor cores fed by TMA)")
     check(sass["stem_conv3d"].get("HGMMA", 0) > 0,
           "stem_conv3d's SASS has HGMMA (the tensor cores)")
+    check(sass["stem_wgrad_f32"].get("FFMA", 0) > 0
+          and sass["stem_wgrad_f32"].get("HGMMA", 0) == 0,
+          "stem_wgrad_f32's SASS has FFMA and no HGMMA (IEEE float32 on "
+          "the CUDA cores)")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "float32 matmuls in IEEE float32 (allow_tf32 off)")
     emit("device", nvidia_smi=smi, torch=torch.__version__,
@@ -579,6 +606,145 @@ def phase_stem(smi: str, sass: dict):
           "stem_conv3d is faster than the s2d cuDNN form at "
           f"{STEM_CLIPS[-1]} clips")
     return rows
+
+
+def stem_wgrad_unfold(x, dy, dtype=None, chunk: int = 64):
+    """The stem's weight gradient by another route than the kernel's and
+    cuDNN's: each frame's (3 x 7 x 7, position) patches (``F.unfold``,
+    stride 2, padding 3) times the output gradient in one matrix product
+    (``torch.einsum``), ``chunk`` frames at a time, in ``dtype`` (float64
+    by default: the referee). ``x`` (B, T, H, W, 3), ``dy`` (B, Cout, T,
+    Ho, Wo) -> (Cout, 3, 1, 7, 7)."""
+    import torch
+    import torch.nn.functional as F
+
+    dtype = dtype or torch.float64
+    b, t, h, w, _ = x.shape
+    cout = dy.shape[1]
+    frames = x.reshape(b * t, h, w, 3).permute(0, 3, 1, 2)
+    grads = dy.permute(0, 2, 1, 3, 4).reshape(b * t, cout, -1)
+    acc = torch.zeros(cout, 3 * 49, dtype=dtype, device=x.device)
+    for i in range(0, b * t, chunk):
+        cols = F.unfold(frames[i:i + chunk].to(dtype), 7, padding=3, stride=2)
+        acc += torch.einsum("nol,nkl->ok", grads[i:i + chunk].to(dtype), cols)
+    return acc.view(cout, 3, 1, 7, 7)
+
+
+def stem_wgrad_in_frame_taps(n: int) -> int:
+    """The (output position, kernel tap) pairs along one axis of ``n``
+    pixels (stride 2, padding 3, 7 taps) whose input pixel lies inside the
+    frame: the taps on the zero padding do no work (442 of 448 at 128)."""
+    return sum(min(n - 1, 2 * o + 3) - max(0, 2 * o - 3) + 1
+               for o in range((n + 1) // 2))
+
+
+def wgrad_err(got, ref) -> float:
+    """Worst |got - ref| as a share of the largest |ref|."""
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def stem_wgrad_operands(gen, b, t, h, w, cout):
+    """Normalized seeded clips (B, T, H, W, 3) and a unit normal output
+    gradient in channels_last_3d memory, on the card."""
+    import torch
+
+    from video_similarity_search_tpu_torch.data.augment import normalize_only
+
+    x = normalize_only(torch.randint(0, 256, (b, t, h, w, 3), generator=gen,
+                                     device="cuda", dtype=torch.uint8),
+                       dataset="ucf101")
+    dy = torch.randn((b, t, (h + 1) // 2, (w + 1) // 2, cout), generator=gen,
+                     device="cuda").permute(0, 4, 1, 2, 3)
+    return x, dy
+
+
+def phase_stem_wgrad(smi: str, sass: dict):
+    """S3D's float32 stem weight gradient kernel (ops/stem_wgrad.py) at
+    the MoCo cell's 32 query clips of 32x128x128 from seeded uint8 clips
+    and a unit normal output gradient: its ms beside the FMA bound, the
+    plain version's (``aten.convolution_backward``, on the card cuDNN's
+    call of the path before) and the library's other routes: cuDNN on
+    NCDHW copies, cuDNN with its autotuner (``cudnn.benchmark``) and an
+    ``F.unfold`` and matrix product in float32; its worst error and
+    cuDNN's against ``stem_wgrad_unfold`` in float64 (the kernel's no
+    larger), ragged shapes within STEM_WGRAD_RAGGED_TOL and two calls
+    bitwise equal. Its launches are counted on the main path, in the
+    classify_step and moco phases. -> the row."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models.layers import Conv3d
+    from video_similarity_search_tpu_torch.ops import cuda_build, stem_wgrad
+    from video_similarity_search_tpu_torch.utils.flops import peaks_for
+
+    variant, peaks = peaks_for(smi)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ragged = []
+    for b, t, h, w, cout in STEM_WGRAD_RAGGED:
+        x, dy = stem_wgrad_operands(gen, b, t, h, w, cout)
+        err = wgrad_err(stem_wgrad.weight_grad_cuda(x, dy),
+                        stem_wgrad_unfold(x, dy))
+        ragged.append({"shape": [b, t, h, w, cout], "err": err})
+        check(err <= STEM_WGRAD_RAGGED_TOL, f"stem_wgrad at "
+              f"{(b, t, h, w, cout)} within {STEM_WGRAD_RAGGED_TOL} of "
+              f"float64: {err}")
+    b, t, h, w = STEM_WGRAD_SHAPE
+    x, dy = stem_wgrad_operands(gen, b, t, h, w, 64)
+    torch.manual_seed(SEED)
+    wt = Conv3d(3, 64, (1, 7, 7), (1, 2, 2), (0, 3, 3)).cuda().to(
+        memory_format=torch.channels_last_3d).weight.detach()
+    xv = x.permute(0, 4, 1, 2, 3)
+    got = stem_wgrad.weight_grad_cuda(x, dy)
+    again = stem_wgrad.weight_grad_cuda(x, dy)
+    check(torch.equal(got, again), "stem_wgrad: two calls bitwise equal")
+    cudnn = stem_wgrad.weight_grad_plain(xv, dy, wt)
+    ref = stem_wgrad_unfold(x, dy)
+    row = {"shape": [b, t, h, w, 3], "cout": 64,
+           "err_vs_fp64": wgrad_err(got, ref),
+           "cudnn_err_vs_fp64": wgrad_err(cudnn, ref),
+           "max_abs_ref": float(ref.abs().max()), "ragged": ragged}
+    check(row["err_vs_fp64"] <= row["cudnn_err_vs_fp64"], "stem_wgrad's "
+          f"worst error against float64 no larger than cuDNN's ({row})")
+    unfold = stem_wgrad_unfold(x, dy, torch.float32, 256)
+    row["unfold_mm_err_vs_fp64"] = wgrad_err(unfold, ref)
+    del again, cudnn, ref, unfold
+    # the taps inside the frame: those on the zero padding do no work
+    ops = (2.0 * 64 * 3 * b * t * stem_wgrad_in_frame_taps(h)
+           * stem_wgrad_in_frame_taps(w))
+    row["all_taps_gflop"] = 2.0 * 64 * 147 * b * t * ((h + 1) // 2) * (
+        (w + 1) // 2) / 1e9
+    row.update(bound(ops, x.numel() * 4 + dy.numel() * 4, "float32", peaks))
+    row["bytes_ms"] = (x.numel() + dy.numel()) * 4 / peaks[2] * 1e3
+    row["ms"] = time_ms(lambda: stem_wgrad.weight_grad_cuda(x, dy), 10)
+    row["tflops"] = ops / (row["ms"] * 1e-3) / 1e12
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["plain_ms"] = time_ms(
+        lambda: stem_wgrad.weight_grad_plain(xv, dy, wt), 3)
+    xn, dyn = xv.contiguous(), dy.contiguous()
+    row["library_ms"] = {"cudnn_ncdhw": time_ms(
+        lambda: stem_wgrad.weight_grad_plain(xn, dyn, wt), 3)}
+    del xn, dyn
+    tuned = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:  # the warm-up call of time_ms runs the autotuner's search
+        row["library_ms"]["cudnn_benchmark"] = time_ms(
+            lambda: stem_wgrad.weight_grad_plain(xv, dy, wt), 3)
+    finally:
+        torch.backends.cudnn.benchmark = tuned
+    row["library_ms"]["unfold_mm_fp32"] = time_ms(
+        lambda: stem_wgrad_unfold(x, dy, torch.float32, 256), 3)
+    del x, dy, xv
+    torch.cuda.empty_cache()
+    row["peak_variant"] = variant
+    row["sass"] = key_opcodes(sass["stem_wgrad_f32"])
+    row["ptxas"] = [ln.strip() for ln in cuda_build.BUILD_LOGS.get(
+        "stem_wgrad_f32", "").splitlines() if "registers" in ln
+        or "spill" in ln or "smem" in ln]
+    row["dynamic_smem_bytes"] = cuda_build.load(
+        "stem_wgrad_f32").stem_wgrad_f32_smem_bytes()
+    emit("stem_wgrad", name="stem_wgrad_f32", **row)
+    return row
 
 
 def fp64_referee(xn, ki, kd, pi, pd, tile: int = 512) -> dict:
@@ -3086,13 +3252,15 @@ def classify_precision(net, host):
 
 def time_classify(net, train_what, host, dtype="float32"):
     """(c) Median ms of the step after two warm-up steps on the host clock
-    (normalize + step, as the CLI runs it), clips/s and peak GiB; and the
-    device ms of its parts (``device_split_ms`` over the real step:
-    normalize, forward + loss, backward, optimizer)."""
+    (normalize + step, as the CLI runs it), clips/s and peak GiB; the stem
+    weight gradient kernel's launches in the timed steps; and the device
+    ms of its parts (``device_split_ms`` over the real step: normalize,
+    forward + loss, backward, optimizer)."""
     import torch
     from torch.profiler import record_function
 
     from video_similarity_search_tpu_torch.data.augment import normalize_only
+    from video_similarity_search_tpu_torch.ops import stem_wgrad
     from video_similarity_search_tpu_torch.train.steps import RANGES
 
     _, model, _, _, step = classifier(net, train_what, "cuda", dtype=dtype)
@@ -3110,11 +3278,13 @@ def time_classify(net, train_what, host, dtype="float32"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     whole = []
+    stem_wgrad.LAUNCHES = 0
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         one()
         torch.cuda.synchronize()
         whole.append((time.perf_counter() - t0) * 1e3)
+    launches = stem_wgrad.LAUNCHES
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     split = device_split_ms(one, TIMED_STEPS, ("normalize",) + RANGES)
     ms = float(np.median(whole))
@@ -3123,7 +3293,8 @@ def time_classify(net, train_what, host, dtype="float32"):
     return {"train_what": train_what, "dtype": dtype, "step_ms": ms,
             "step_ms_all": whole, "clips_per_s": CLS_BATCH / (ms / 1e3),
             "peak_mem_gib": peak, "trained_params": trained,
-            "frozen_params": sum(params) - trained, "device_split_ms": split}
+            "frozen_params": sum(params) - trained, "device_split_ms": split,
+            "stem_wgrad_launches": launches}
 
 
 def time_eval(net, host, rng):
@@ -3203,7 +3374,7 @@ def phase_classify_step(smi: str):
     rng = np.random.default_rng(SEED)
     host = classify_batch(rng, CLS_BATCH)
     clip_bytes = host["clips"].nbytes
-    nets = {}
+    nets, launches = {}, {}
     for net in CLS_NETS:
         flop = clip_flop(net)
         row = {"forward_gflop_per_clip": flop["forward"] / 1e9,
@@ -3212,6 +3383,14 @@ def phase_classify_step(smi: str):
         row["precision"] = classify_precision(net, host)
         row["timing"] = [time_classify(net, m, host) for m in CLS_MODES]
         row["timing"].append(time_classify(net, "all", host, "bfloat16"))
+        # the float32 stem trains in ft and all: one launch a step; last
+        # freezes it, and bf16 keeps cuDNN
+        launches[net] = {f"{t['train_what']} {t['dtype']}":
+                         t["stem_wgrad_launches"] for t in row["timing"]}
+        check(list(launches[net].values()) == [0, TIMED_STEPS, TIMED_STEPS,
+                                               0], f"{net}: the stem weight "
+              "gradient kernel launches once a float32 ft or all step, never "
+              f"in last or bf16 ({launches[net]})")
         for t in row["timing"]:
             per_clip = (flop["forward"] if t["train_what"] == "last"
                         else 3 * flop["forward"] - flop["stem"])
@@ -3229,7 +3408,7 @@ def phase_classify_step(smi: str):
          classes=CLS_CLASSES, dropout=CLS_DROPOUT, lr=CLS_LR, wd=CLS_WD,
          dtype="float32", device=smi, nets=nets, learning=learn)
     return {t["train_what"]: t["clips_per_s"] for t in nets["s3d"]["timing"]
-            if t["dtype"] == "float32"}
+            if t["dtype"] == "float32"}, launches
 
 
 def run_main(main, argv, what: str):
@@ -4150,10 +4329,13 @@ def moco_batch(rng, b, structured=False, dtype=None):
 def time_moco(arch, dtype, init, rng):
     """ms of a step (median of TIMED_STEPS after two warm-up steps, host
     clock around a synchronized step), clips/s (two views a row) and peak
-    GiB; in bf16 (the config's dtype) the device split of the step's
+    GiB; the stem weight gradient kernel's launches in the timed steps
+    (one a float32 step, none in bf16) and in a key forward after them
+    (none); in bf16 (the config's dtype) the device split of the step's
     ranges too."""
     import torch
 
+    from video_similarity_search_tpu_torch.ops import stem_wgrad
     from video_similarity_search_tpu_torch.train.steps import RANGES
 
     model, bank, step = moco_trainer(moco_cfg(arch, dtype), init)
@@ -4163,18 +4345,29 @@ def time_moco(arch, dtype, init, rng):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
+    stem_wgrad.LAUNCHES = 0
     for _ in range(TIMED_STEPS):
         t0 = time.perf_counter()
         met = step(batch)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
+    launches = {"timed_steps": stem_wgrad.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = float(np.median(times))
+    stem_wgrad.LAUNCHES = 0
+    bank.keys(batch["x2"])
+    torch.cuda.synchronize()
+    launches["key_forward"] = stem_wgrad.LAUNCHES
     check(np.isfinite(first), f"{arch} {dtype}: a finite first loss")
+    check(launches == {"timed_steps": TIMED_STEPS * (dtype == "float32"),
+                       "key_forward": 0}, f"{arch} {dtype}: the stem weight "
+          "gradient kernel launches once a float32 step, never in bf16 or "
+          f"the key forward ({launches})")
     out = {"arch": arch, "dtype": dtype, "step_ms": ms, "step_ms_all": times,
            "clips_per_s": 2 * MOCO_ANCHORS / (ms / 1e3),
            "peak_mem_gib": peak, "first_loss": first,
-           "last_loss": float(met["loss"]), "queue_ptr": int(bank.queue_ptr)}
+           "last_loss": float(met["loss"]), "queue_ptr": int(bank.queue_ptr),
+           "stem_wgrad_launches": launches}
     if dtype == "bfloat16":
         out["device_split_ms"] = device_split_ms(lambda: step(batch),
                                                  TIMED_STEPS, RANGES)
@@ -4388,7 +4581,8 @@ def phase_moco(paths):
          clip=[MOCO_T, MOCO_S, MOCO_S, 3], k=moco_cfg("info_nce").LOSS.K,
          timing=timing, fp32_vs_fp64=vs64, learning=learn, cli=cli,
          nn1_cosine_launches=launches, seconds=sec)
-    return {f"{t['arch']} {t['dtype']}": t["step_ms"] for t in timing}
+    return {f"{t['arch']} {t['dtype']}": t["stem_wgrad_launches"]
+            for t in timing}
 
 
 DIST_WORLD = 2  # gloo ranks sharing the one card
@@ -4769,6 +4963,7 @@ def main() -> int:
     bank, bank_lbl = mixture(240_000, seed=0)
     shapes = run("kernel", phase_kernel_nn1, smi, sass, bank)
     stem_rows = run("stem", phase_stem, smi, sass)
+    wgrad_row = run("stem_wgrad", phase_stem_wgrad, smi, sass)
     model, cfg, emb4096, cache, embed_launches = run("embed", phase_embed)
     finch_launches = run("cluster", phase_cluster, bank, bank_lbl, emb4096)
     run("retrieval", phase_retrieval, model, cfg, cache, bank)
@@ -4790,14 +4985,15 @@ def main() -> int:
     run("train_options", phase_train_options)
     run("contrastive", phase_contrastive, paths)
     fused_knn.LAUNCHES = 0
-    cls_rates = run("classify_step", phase_classify_step, smi)
+    cls_rates, cls_wgrad_launches = run("classify_step", phase_classify_step,
+                                        smi)
     check(fused_knn.LAUNCHES == 0, "the classifier step launches no 1-NN "
           "kernel")
     run("classify_cli", phase_classify_cli, cls_rates)
     lmdb_launches = run("lmdb", phase_lmdb, cls_rates)
     iic_launches = run("iic", phase_iic, smi)
     run("slowfast", phase_slowfast, smi)
-    run("moco", phase_moco, paths)
+    moco_wgrad_launches = run("moco", phase_moco, paths)
     dist_launches = run("dist", phase_dist, smi, paths)
     emit("timing", seconds=seconds, total_s=sum(seconds.values()),
          notes="the data phase reads 3 epochs of the eval train loader "
@@ -4836,7 +5032,20 @@ def main() -> int:
         "library_ms": stem_rows[-1]["library_ms"],
         "max_abs_err": max(r["max_abs_err"] for r in stem_rows),
         "sass": key_opcodes(sass["stem_conv3d"]),
-        "shape": stem_rows[-1]["shape"], "shapes": stem_rows}]}),
+        "shape": stem_rows[-1]["shape"], "shapes": stem_rows}, {
+        "name": "stem_wgrad_f32", "route": "cuda",
+        "source": KERNELS["stem_wgrad_f32"][0],
+        "replaces": KERNELS["stem_wgrad_f32"][1],
+        "launches": {f"moco ({TIMED_STEPS} steps)": moco_wgrad_launches,
+                     f"classify_step ({TIMED_STEPS} steps)":
+                     cls_wgrad_launches}, "ms": wgrad_row["ms"],
+        "plain_ms": wgrad_row["plain_ms"],
+        "bound_ms": wgrad_row["bound_ms"],
+        "bound_by": wgrad_row["bound_by"],
+        "library_ms": wgrad_row["library_ms"],
+        "err_vs_fp64": wgrad_row["err_vs_fp64"],
+        "cudnn_err_vs_fp64": wgrad_row["cudnn_err_vs_fp64"],
+        "sass": wgrad_row["sass"], "shape": wgrad_row["shape"]}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

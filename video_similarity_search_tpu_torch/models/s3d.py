@@ -15,6 +15,11 @@ the aliases of a reference file onto them.
 pool it). Every BatchNorm is the port's ``layers.BatchNorm`` (eps 1e-5,
 torch momentum 0.1, flax's running variance in train mode); convolutions
 carry no bias, ``SelfGating.fc`` does.
+
+Where ``stem_wgrad.engages`` (float32 on CUDA, the stem's weight taking a
+gradient and the clip none), the stem's ``Conv_1a.conv1`` runs through
+``ops/stem_wgrad.py``'s Function: the same forward, and the weight
+gradient of the hand-written kernel ``csrc/stem_wgrad_f32.cu``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import stem_wgrad
+from ..ops.stem_conv import autocast_dtype
 from ..utils.profiling import span
 from .layers import BatchNorm, Conv3d, IntOr3
 
@@ -57,7 +64,13 @@ class STConv3d(nn.Module):
         self.bn2 = BatchNorm(out_ch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.bn1(self.conv1(x)))
+        # the rule takes S3D's RGB stem alone (3 channels, (1, 7, 7), stride
+        # (1, 2, 2)); every other conv1 keeps nn.Conv3d
+        routed = stem_wgrad.engages(self.conv1, x,
+                                    autocast_dtype(x.device.type))
+        x = (stem_wgrad.StemWgradF32.apply(x, self.conv1.weight) if routed
+             else self.conv1(x))
+        x = F.relu(self.bn1(x))
         return F.relu(self.bn2(self.conv2(x)))
 
 
