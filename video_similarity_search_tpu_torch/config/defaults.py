@@ -180,9 +180,9 @@ def _build_default_cfg() -> ConfigNode:
     # buffer — 4x fewer transfer bytes and ~25% less host decode work;
     # the device augmentation then skips its crop+resize
     _C.TPU.HOST_RRC = False
-    # a torch.profiler Chrome trace of the triplet epoch's steps 5-9 in
-    # epoch 0, with the port's spans (utils/profiling.py), written to
-    # <PROFILE_DIR>/trace_steps5-9.json; "" = off
+    # a torch.profiler Chrome trace of the train epoch's steps 5-9 in
+    # epoch 0 (every loss), with the port's spans (utils/profiling.py),
+    # written to <PROFILE_DIR>/trace_steps5-9.json; "" = off
     _C.TPU.PROFILE_DIR = ""
     _C.TPU.REMAT = False  # checkpoint residual blocks (big-batch training)
     # restrict remat to specific 1-based stages, e.g. "1" (stage-1 holds

@@ -43,7 +43,7 @@ from __future__ import annotations
 
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -157,43 +157,52 @@ def _drain(pending, meter_updates) -> int:
     return items
 
 
-def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
-                        generator: torch.Generator, is_master: bool = True,
-                        sink=None, device="cuda") -> float:
-    """One triplet epoch (reference online_train.py:245-434) -> mean
-    loss."""
-    losses = AverageMeter("loss")
-    n_triplets = AverageMeter("n_triplets")
+def _train_epoch(step_fn, train_loader, cfg, epoch: int,
+                 generator: torch.Generator, is_master: bool, sink,
+                 inputs: Callable[[dict], dict], names: Tuple[str, ...],
+                 per_step: Tuple[str, ...] = (), line: str = "",
+                 scalars: Tuple[str, ...] = ()) -> float:
+    """One epoch of any loss -> mean loss. ``inputs(batch)`` makes the
+    step's input from a host batch, each step's generator seeded by
+    ``step_seed``. The step metrics stay on the device until ``_drain``
+    reads them (the first step alone, then every ``TRAIN.LOG_INTERVAL``
+    steps and at the end) into a meter of each metric in ``names``, a
+    mean over the clips, over the steps for those in ``per_step``;
+    ``line`` formats the meters into the log line between the loss and
+    the rate, and ``scalars`` names the meters (or ``clips_per_sec``)
+    written to ``sink`` as ``train/<name>`` at each log point.
+    ``TPU.PROFILE_DIR`` traces epoch 0's steps."""
+    meters = {name: AverageMeter(name) for name in names}
+    losses = meters["loss"]
     start = time.time()
     profiler = StepProfiler(cfg.TPU.PROFILE_DIR if epoch == 0 else "")
     thru = Throughput()
     pending = []
 
     def update(metrics, bsz):
-        losses.update(float(metrics["loss"]), bsz)
-        n_triplets.update(float(metrics["n_triplets"]))
+        for name, meter in meters.items():
+            meter.update(float(metrics[name]),
+                         1 if name in per_step else bsz)
 
-    accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
     for batch_idx, batch in enumerate(train_loader):
         profiler.step(batch_idx)
         generator.manual_seed(step_seed(epoch, batch_idx))
-        dev_batch = _device_batch(batch, cfg, generator, train=True,
-                                  device=device, accum=accum)
-        metrics = step_fn(dev_batch, generator)
+        metrics = step_fn(inputs(batch), generator)
         pending.append((metrics, batch["__size__"]))
         if batch_idx == 0:
             thru.done(_drain(pending, update))
         if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
             thru.done(_drain(pending, update))
             print(f"Train Epoch: {epoch} [{losses.count}]\t"
-                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})\t"
-                  f"N_Triplets: {n_triplets.avg:.1f}\t"
+                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})"
+                  f"{line.format(**meters)}\t"
                   f"{thru.items_per_sec:.1f} clips/s")
             if sink:
                 it = epoch * len(train_loader) + batch_idx
-                sink.add_scalar("train/loss", losses.val, it)
-                sink.add_scalar("train/clips_per_sec", thru.items_per_sec,
-                                it)
+                values = {name: m.val for name, m in meters.items()}
+                values["clips_per_sec"] = thru.items_per_sec
+                for name in scalars:
+                    sink.add_scalar(f"train/{name}", values[name], it)
     thru.done(_drain(pending, update))
     profiler.close()
     if is_master:
@@ -208,6 +217,24 @@ def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
     return losses.avg
 
 
+def triplet_train_epoch(step_fn, train_loader, cfg, epoch: int,
+                        generator: torch.Generator, is_master: bool = True,
+                        sink=None, device="cuda") -> float:
+    """One triplet epoch (reference online_train.py:245-434) -> mean
+    loss. It logs ``N_Triplets`` as the mean over the steps."""
+    accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
+
+    def inputs(batch):
+        return _device_batch(batch, cfg, generator, train=True,
+                             device=device, accum=accum)
+
+    return _train_epoch(step_fn, train_loader, cfg, epoch, generator,
+                        is_master, sink, inputs, ("loss", "n_triplets"),
+                        per_step=("n_triplets",),
+                        line="\tN_Triplets: {n_triplets.avg:.1f}",
+                        scalars=("loss", "clips_per_sec"))
+
+
 def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
                             generator: torch.Generator,
                             is_master: bool = True, sink=None,
@@ -218,55 +245,22 @@ def contrastive_train_epoch(step_fn, train_loader, cfg, epoch: int,
     than ``rgb`` (the ``res`` rule of the JAX driver) the second view is
     the frame residual of the first, taken in the step, and the positive
     clip is dropped before its upload and augmentation."""
-    modality = contrastive_modality(cfg)
-    losses = AverageMeter("loss")
-    v1_loss = AverageMeter("view1_loss")
-    v2_loss = AverageMeter("view2_loss")
-    start = time.time()
-    thru = Throughput()
-    pending = []
-
-    def update(metrics, bsz):
-        losses.update(float(metrics["loss"]), bsz)
-        v1_loss.update(float(metrics["view1_loss"]), bsz)
-        v2_loss.update(float(metrics["view2_loss"]), bsz)
-
+    res = contrastive_modality(cfg) == "res"
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
-    for batch_idx, batch in enumerate(train_loader):
-        generator.manual_seed(step_seed(epoch, batch_idx))
-        if modality == "res":
+
+    def inputs(batch):
+        if res:
             batch = {k: v for k, v in batch.items() if k != "positive"}
         dev_batch = _device_batch(batch, cfg, generator, train=True,
                                   device=device, accum=accum)
-        step_batch = {"view1": dev_batch["anchor"],
-                      "index": dev_batch["index"]}
-        if modality != "res":
-            step_batch["view2"] = dev_batch["positive"]
-        metrics = step_fn(step_batch, generator)
-        pending.append((metrics, batch["__size__"]))
-        if batch_idx == 0:
-            thru.done(_drain(pending, update))
-        if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
-            thru.done(_drain(pending, update))
-            print(f"Train Epoch: {epoch} [{losses.count}]\t"
-                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})\t"
-                  f"{thru.items_per_sec:.1f} clips/s")
-            if sink:
-                it = epoch * len(train_loader) + batch_idx
-                sink.add_scalar("train/loss", losses.val, it)
-                sink.add_scalar("train/view1_loss", v1_loss.val, it)
-                sink.add_scalar("train/view2_loss", v2_loss.val, it)
-    thru.done(_drain(pending, update))
-    if is_master:
-        runtime_h = (time.time() - start) / 3600
-        print(f"\nTrain set: Average loss: {losses.avg:.4f} "
-              f"({thru.items_per_sec:.1f} clips/s steady-state)")
-        append_metric_line(cfg.OUTPUT_PATH, "train_loss_and_acc.txt",
-                           f"epoch:{epoch} runtime:{round(runtime_h, 2)} "
-                           f"{losses.avg:.4f}")
-        if sink:
-            sink.add_scalar("epoch/train_loss", losses.avg, epoch)
-    return losses.avg
+        out = {"view1": dev_batch["anchor"], "index": dev_batch["index"]}
+        if not res:
+            out["view2"] = dev_batch["positive"]
+        return out
+
+    names = ("loss", "view1_loss", "view2_loss")
+    return _train_epoch(step_fn, train_loader, cfg, epoch, generator,
+                        is_master, sink, inputs, names, scalars=names)
 
 
 def ubernce_train_epoch(step_fn, train_loader, cfg, epoch: int,
@@ -277,51 +271,18 @@ def ubernce_train_epoch(step_fn, train_loader, cfg, epoch: int,
     The triplet loader's anchor and positive clips, augmented on the
     device, are the two views ``x1`` / ``x2``; the anchors' targets are
     the labels."""
-    losses = AverageMeter("loss")
-    top1 = AverageMeter("top1")
-    top5 = AverageMeter("top5")
-    start = time.time()
-    thru = Throughput()
-    pending = []
-
-    def update(metrics, bsz):
-        losses.update(float(metrics["loss"]), bsz)
-        top1.update(float(metrics["top1"]), bsz)
-        top5.update(float(metrics["top5"]), bsz)
-
-    for batch_idx, batch in enumerate(train_loader):
-        generator.manual_seed(step_seed(epoch, batch_idx))
+    def inputs(batch):
         dev_batch = _device_batch(batch, cfg, generator, train=True,
                                   device=device)
         b = dev_batch["anchor"].shape[0]
-        metrics = step_fn({"x1": dev_batch["anchor"],
-                           "x2": dev_batch["positive"],
-                           "label": dev_batch["targets"][:b]}, generator)
-        pending.append((metrics, batch["__size__"]))
-        if batch_idx == 0:
-            thru.done(_drain(pending, update))
-        if is_master and (batch_idx + 1) % cfg.TRAIN.LOG_INTERVAL == 0:
-            thru.done(_drain(pending, update))
-            print(f"Train Epoch: {epoch} [{losses.count}]\t"
-                  f"Loss: {losses.val:.4f} ({losses.avg:.4f})  "
-                  f"Top1:{top1.val:.4f} Top5:{top5.val:.4f}\t"
-                  f"{thru.items_per_sec:.1f} clips/s")
-            if sink:
-                it = epoch * len(train_loader) + batch_idx
-                sink.add_scalar("train/loss", losses.val, it)
-                sink.add_scalar("train/top1", top1.val, it)
-                sink.add_scalar("train/top5", top5.val, it)
-    thru.done(_drain(pending, update))
-    if is_master:
-        runtime_h = (time.time() - start) / 3600
-        print(f"\nTrain set: Average loss: {losses.avg:.4f} "
-              f"({thru.items_per_sec:.1f} clips/s steady-state)")
-        append_metric_line(cfg.OUTPUT_PATH, "train_loss_and_acc.txt",
-                           f"epoch:{epoch} runtime:{round(runtime_h, 2)} "
-                           f"{losses.avg:.4f}")
-        if sink:
-            sink.add_scalar("epoch/train_loss", losses.avg, epoch)
-    return losses.avg
+        return {"x1": dev_batch["anchor"], "x2": dev_batch["positive"],
+                "label": dev_batch["targets"][:b]}
+
+    names = ("loss", "top1", "top5")
+    return _train_epoch(step_fn, train_loader, cfg, epoch, generator,
+                        is_master, sink, inputs, names,
+                        line="  Top1:{top1.val:.4f} Top5:{top5.val:.4f}",
+                        scalars=names)
 
 
 def contrastive_modality(cfg) -> str:

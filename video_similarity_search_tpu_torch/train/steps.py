@@ -28,6 +28,7 @@ are summed across ranks before the one optimizer step.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
@@ -54,7 +55,8 @@ RANGES = ("step.forward_loss", "step.backward", "step.optimizer")
 
 
 def _prepare(cfg, model: torch.nn.Module, device) -> tuple:
-    """Move ``model`` to ``device``; -> (device, autocast dtype)."""
+    """Move ``model`` to ``device``; -> (device, ``autocast()``: a new
+    ``torch.autocast`` context in the compute dtype, off in float32)."""
     dev = resolve_device(device)
     model.to(dev)
     dtype = torch.float32
@@ -63,7 +65,55 @@ def _prepare(cfg, model: torch.nn.Module, device) -> tuple:
         torch.backends.cuda.matmul.allow_tf32 = False
         model.to(memory_format=torch.channels_last_3d)
         dtype = compute_dtype(cfg)
-    return dev, dtype
+    return dev, functools.partial(torch.autocast, dev.type, dtype=dtype,
+                                  enabled=dtype != torch.float32)
+
+
+def _nth(v, a: int, accum: int):
+    """Microbatch ``a``'s share of a batch leaf or an injected draw: all of
+    it at ``accum`` 1, else its row ``a``."""
+    return v if accum == 1 or v is None else v[a]
+
+
+def _optimizer_step(model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, schedule,
+                    accum: int = 1) -> Callable:
+    """The skeleton every train step shares -> ``run(forward_loss,
+    after=None)``: train mode, the gradients cleared, then for each of the
+    ``accum`` microbatches ``forward_loss(a)`` -> (loss, metrics) in
+    ``step.forward_loss`` and the loss's backward in ``step.backward``;
+    the gradients summed across ranks once, in the last microbatch's
+    ``step.backward``, and divided by ``accum`` when it is above 1; then
+    ``optimizer.step()``, ``schedule.step()`` and ``after(parts)`` in
+    ``step.optimizer``. Returns the microbatches' metrics, ``parts``."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def run(forward_loss: Callable, after: Optional[Callable] = None
+            ) -> list:
+        model.train()
+        optimizer.zero_grad(set_to_none=True)
+        parts = []
+        for a in range(accum):
+            with span(RANGES[0]):
+                loss, metrics = forward_loss(a)
+            with span(RANGES[1]):
+                loss.backward()
+                if a == accum - 1:
+                    sum_gradients(params)
+            parts.append(metrics)
+        if accum > 1:
+            with torch.no_grad():
+                for p in params:
+                    if p.grad is not None:
+                        p.grad.div_(accum)
+        with span(RANGES[2]):
+            optimizer.step()
+            schedule.step()
+            if after is not None:
+                after(parts)
+        return parts
+
+    return run
 
 
 def model_input(cfg, clips: torch.Tensor):
@@ -120,13 +170,11 @@ def make_embed_step(cfg, model: torch.nn.Module,
     Moves ``model`` to ``device`` and puts it in eval mode. A model that
     returns a tuple gives its first entry (a classifier's logits), as the
     JAX step does; SlowFast gets its pathways (``model_input``)."""
-    dev, dtype = _prepare(cfg, model, device)
+    _, autocast = _prepare(cfg, model, device)
     model.eval()
-    use_amp = dtype != torch.float32
 
     def step(clips: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode(), torch.autocast(
-                dev.type, dtype=dtype, enabled=use_amp):
+        with torch.inference_mode(), autocast():
             out = model(model_input(cfg, clips))
         return _first(out).float()
 
@@ -159,30 +207,25 @@ def make_classify_train_step(cfg, model: torch.nn.Module,
     tensors. The dropout mask is drawn from ``generator`` or given as
     ``dropout_keep``. Weight decay and ``--train_what`` freezing live in
     the optimizer (``train/state.py::make_classify_optimizer``)."""
-    dev, dtype = _prepare(cfg, model, device)
-    use_amp = dtype != torch.float32
+    _, autocast = _prepare(cfg, model, device)
+    run = _optimizer_step(model, optimizer, schedule)
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              dropout_keep: Optional[torch.Tensor] = None
              ) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with span(RANGES[0]):
-            with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+        def forward_loss(_):
+            with autocast():
                 out = model(batch["clips"], dropout_keep=dropout_keep,
                             generator=generator)
-            logits = (out[0] if isinstance(out, tuple) else out).float()
+            logits = _first(out).float()
             labels = batch["label"].long()
             loss = F.cross_entropy(logits, labels)
-        with span(RANGES[1]):
-            loss.backward()
-        with span(RANGES[2]):
-            optimizer.step()
-            schedule.step()
-        logits = logits.detach()
+            return loss, (loss.detach(), logits.detach(), labels)
+
+        [(loss, logits, labels)] = run(forward_loss)
         t1, t5 = _topk_accuracy(logits, labels)
-        return {"loss": loss.detach(), "top1": t1, "top5": t5}
+        return {"loss": loss, "top1": t1, "top5": t5}
 
     return step
 
@@ -211,18 +254,16 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
     if use_mem and bank is None:
         raise ValueError("LOSS.MEM_TRIPLET trains against a bank: pass "
                          "make_banks(cfg, n)['mem_triplet']")
-    dev, dtype = _prepare(cfg, model, device)
+    dev, autocast = _prepare(cfg, model, device)
     if use_mem:
         bank.to(dev)
-    use_amp = dtype != torch.float32
     margin = cfg.LOSS.MARGIN
     metric = cfg.LOSS.DIST_METRIC
     strategy = cfg.DATASET.SAMPLING_STRATEGY
     use_rsp = cfg.LOSS.RELATIVE_SPEED_PERCEPTION
     use_llc = cfg.LOSS.LOCAL_LOCAL_CONTRAST
     use_intra = cfg.LOSS.INTRA_NEGATIVE
-    intra_compat = bool(getattr(cfg.LOSS, "INTRA_NEG_REFERENCE_COMPAT",
-                                False))
+    intra_compat = bool(cfg.LOSS.INTRA_NEG_REFERENCE_COMPAT)
     llc_margin = cfg.LOSS.LOCAL_LOCAL_MARGIN
     llc_weight = cfg.LOSS.LOCAL_LOCAL_WEIGHT
 
@@ -232,7 +273,7 @@ def make_triplet_loss_fn(cfg, model: torch.nn.Module, device="cuda",
         clips = [batch["anchor"], batch["positive"]]
         if use_rsp or use_llc or use_intra:
             clips.append(batch["extra"])
-        with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+        with autocast():
             emb = _first(model(model_input(cfg, torch.cat(clips, 0))))
         emb = gather_parts(emb.float(), len(clips))
         targets = gather_parts(batch["targets"], 2)
@@ -284,35 +325,20 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
     ranks' sum."""
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
     loss_fn = make_triplet_loss_fn(cfg, model, device, bank)
-    params = [p for p in model.parameters() if p.requires_grad]
+    run = _optimizer_step(model, optimizer, schedule, accum)
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              noise=None) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        if accum == 1:
-            with span(RANGES[0]):
-                loss, aux = loss_fn(batch, noise, generator)
-            with span(RANGES[1]):
-                loss.backward()
-                sum_gradients(params)
-            metrics = {"loss": loss.detach(), **aux}
-        else:
-            parts = []
-            for a in range(accum):
-                mb = {k: v[a] for k, v in batch.items()}
-                with span(RANGES[0]):
-                    loss, aux = loss_fn(mb, None if noise is None
-                                        else noise[a], generator)
-                with span(RANGES[1]):
-                    loss.backward()
-                parts.append({"loss": loss.detach(), **aux})
-            sum_gradients(params)
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(accum)
+        def forward_loss(a):
+            loss, aux = loss_fn({k: _nth(v, a, accum)
+                                 for k, v in batch.items()},
+                                _nth(noise, a, accum), generator)
+            return loss, {"loss": loss.detach(), **aux}
+
+        parts = run(forward_loss)
+        metrics = parts[0]
+        if accum > 1:
             metrics = {k: torch.stack([m[k] for m in parts]).mean()
                        for k in ("loss", "triplet_loss", "aux_loss")}
             metrics["n_triplets"] = torch.stack(
@@ -320,9 +346,6 @@ def make_triplet_train_step(cfg, model: torch.nn.Module,
             metrics["negatives"] = (
                 None if parts[0]["negatives"] is None else
                 torch.stack([m["negatives"] for m in parts]))
-        with span(RANGES[2]):
-            optimizer.step()
-            schedule.step()
         return {k: v.detach() if isinstance(v, torch.Tensor) else v
                 for k, v in metrics.items()}
 
@@ -390,16 +413,15 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
     With a process group up each view's features and the indices are
     gathered into the global batch before they score and update the
     banks, and the draws are the global batch's."""
-    dev, dtype = _prepare(cfg, model, device)
+    dev, autocast = _prepare(cfg, model, device)
     bank.to(dev)
-    use_amp = dtype != torch.float32
     accum = max(1, int(cfg.TRAIN.ACCUM_STEPS))
     temperature = cfg.LOSS.T
-    params = [p for p in model.parameters() if p.requires_grad]
+    run = _optimizer_step(model, optimizer, schedule, accum)
     names = ("loss", "view1_loss", "view2_loss", "view1_prob", "view2_prob")
 
     def encode(clips):
-        with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+        with autocast():
             return _first(model(model_input(cfg, clips))).float()
 
     def loss_fn(batch, generator, nce_idx, perm):
@@ -424,32 +446,15 @@ def make_contrastive_train_step(cfg, model: torch.nn.Module,
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None,
              nce_idx=None, shuffle_perm=None) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        def nth(v, a):  # microbatch a's leaf or injected draw
-            return v if accum == 1 or v is None else v[a]
+        def forward_loss(a):
+            loss, aux = loss_fn({k: _nth(v, a, accum)
+                                 for k, v in batch.items()},
+                                generator, _nth(nce_idx, a, accum),
+                                _nth(shuffle_perm, a, accum))
+            return loss, [v.detach() for v in (loss, *aux)]
 
-        parts = []
-        for a in range(accum):
-            mb = {k: nth(v, a) for k, v in batch.items()}
-            with span(RANGES[0]):
-                loss, aux = loss_fn(mb, generator, nth(nce_idx, a),
-                                    nth(shuffle_perm, a))
-            with span(RANGES[1]):
-                loss.backward()
-            parts.append(torch.stack([loss.detach()]
-                                     + [v.detach() for v in aux]))
-        sum_gradients(params)
-        if accum > 1:
-            with torch.no_grad():
-                for p in params:
-                    if p.grad is not None:
-                        p.grad.div_(accum)
-        with span(RANGES[2]):
-            optimizer.step()
-            schedule.step()
-        means = torch.stack(parts).mean(0)
-        return dict(zip(names, means))
+        parts = [torch.stack(p) for p in run(forward_loss)]
+        return dict(zip(names, torch.stack(parts).mean(0)))
 
     return step
 
@@ -482,22 +487,20 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
     driver runs UberNCE at 1). With a process group up the queries, keys
     and labels are gathered into the global batch (``infonce_forward``),
     so every rank scores, enqueues and updates alike."""
-    dev, dtype = _prepare(cfg, model, device)
+    dev, autocast = _prepare(cfg, model, device)
     bank.to(dev)
     if dev.type == "cuda":
         bank.to(memory_format=torch.channels_last_3d)
-    use_amp = dtype != torch.float32
     query = query_network(model)
-    params = [p for p in model.parameters() if p.requires_grad]
+    run = _optimizer_step(model, optimizer, schedule)
 
     def step(batch: Dict[str, torch.Tensor],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
         labels = gather_rows(batch["label"])
-        with span(RANGES[0]):
-            with torch.autocast(dev.type, dtype=dtype, enabled=use_amp):
+
+        def forward_loss(_):
+            with autocast():
                 if uber:
                     logits, mask, keys = ubernce_forward(
                         model, bank, batch["x1"], batch["x2"], labels,
@@ -507,14 +510,14 @@ def make_moco_train_step(cfg, model: torch.nn.Module,
                         model, bank, batch["x1"], batch["x2"], T=MOCO_T)
                     mask = None
             loss, top1, top5 = moco_losses(logits, mask)
-        with span(RANGES[1]):
-            loss.backward()
-            sum_gradients(params)
-        with span(RANGES[2]):
-            optimizer.step()
-            schedule.step()
+            return loss, ({"loss": loss.detach(), "top1": top1,
+                           "top5": top5}, keys)
+
+        def momentum_and_enqueue(parts):
             bank.momentum_update(query, MOCO_M)
-            bank.dequeue_and_enqueue(keys, labels if uber else None)
-        return {"loss": loss.detach(), "top1": top1, "top5": top5}
+            bank.dequeue_and_enqueue(parts[0][1], labels if uber else None)
+
+        [(metrics, _)] = run(forward_loss, momentum_and_enqueue)
+        return metrics
 
     return step

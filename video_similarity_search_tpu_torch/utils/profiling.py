@@ -11,9 +11,10 @@ the embedding pass's upload, forward and read-back
 recording, so it sits on the profiler's clock beside the kernels and
 copies it launched; otherwise it costs one check.
 
-Set ``TPU.PROFILE_DIR`` and the triplet epoch traces epoch 0's steps 5-9
-(host and, on a CUDA machine, device activity, with the spans) into a
-Chrome trace under that directory; the epoch logs carry the clips/s of
+Set ``TPU.PROFILE_DIR`` and the epoch loop of every loss
+(``train/driver.py::_train_epoch``) traces epoch 0's steps 5-9 (host and,
+on a CUDA machine, device activity, with the spans) into a Chrome trace
+under that directory; the epoch logs carry the clips/s of
 ``Throughput``.
 """
 
