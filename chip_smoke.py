@@ -257,10 +257,27 @@ KERNELS = {
     "stem_wgrad_f32": (
         "video_similarity_search_tpu_torch/csrc/stem_wgrad_f32.cu",
         None),  # XLA's convolution gradient in the JAX package
+    "bn_act": ("video_similarity_search_tpu_torch/csrc/bn_act.cu",
+               None),  # XLA fuses BatchNorm, the add and ReLU in the JAX package
 }
 # R3D-18's stem at the cells' shapes: the triplet step's and an embedding
 # batch's clips of 16x128x128
 STEM_CLIPS = (96, 256)
+
+# R3D-18's BatchNorm epilogue activations, (clips, C, T, H, W) bf16: the
+# stem's and layer1's in a triplet step's 96 clips and an embedding batch's
+# 256 of 16x128x128, then layer2's, layer3's and layer4's in the embedding
+# batch (their first blocks carry shortcut B's BatchNorm)
+BN_ACT_SHAPES = ((96, 64, 16, 64, 64), (256, 64, 16, 64, 64),
+                 (256, 128, 8, 32, 32), (256, 256, 4, 16, 16),
+                 (256, 512, 2, 8, 8))
+BN_ACT_VARIANTS = ("none", "residual", "normalized residual")
+# the kernels line's row: layer1's block output in an embedding batch
+BN_ACT_HEADLINE = ([256, 64, 16, 64, 64], "residual")
+# the fused BatchNorm epilogues of one R3D-18 eval forward: the stem's and
+# two a block for 8 blocks (shortcut B's BatchNorm rides with the block's
+# last)
+BN_ACT_SITES_R3D18 = 17
 
 # S3D's stem weight gradient at the MoCo cell's query clips: (B, T, H, W),
 # and ragged shapes (odd H and W, W not a multiple of 4, Cout 128) held to
@@ -608,6 +625,109 @@ def phase_stem(smi: str, sass: dict):
     return rows
 
 
+def back_to_back_ms(fn, calls: int, reps: int = 5) -> float:
+    """Device ms a call of ``fn`` over ``calls`` calls queued back to back
+    (``time_ms`` of the lot): the host's time to launch the next call
+    overlaps the device's work, as on the model's path."""
+    return time_ms(lambda: [fn() for _ in range(calls)], reps) / calls
+
+
+def bn_act_operands(gen, shape, variant):
+    """Seeded bf16 channels_last_3d operands of a BatchNorm epilogue on the
+    card: x, the residual (None for "none") and the eval-mode BatchNorms
+    (the second for "normalized residual" only), their affine parameters
+    and running statistics drawn as a trained network's might be."""
+    import torch
+
+    from video_similarity_search_tpu_torch.models.layers import BatchNorm
+
+    def act():
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16).to(memory_format=torch.channels_last_3d)
+
+    def norm():
+        c = shape[1]
+        bn = BatchNorm(c).cuda().eval()
+        with torch.no_grad():
+            bn.weight.copy_(1 + 0.3 * torch.randn(c, generator=gen,
+                                                  device="cuda"))
+            bn.bias.copy_(0.5 * torch.randn(c, generator=gen, device="cuda"))
+            bn.running_mean.copy_(0.5 * torch.randn(c, generator=gen,
+                                                    device="cuda"))
+            bn.running_var.copy_(0.2 + 2 * torch.rand(c, generator=gen,
+                                                      device="cuda"))
+        return bn
+
+    x = act()
+    r = None if variant == "none" else act()
+    return x, r, norm(), norm() if variant == "normalized residual" else None
+
+
+def phase_bn_act(smi: str, sass: dict):
+    """The fused eval BatchNorm epilogue (ops/bn_act.py) at R3D-18's stem
+    and stage shapes, BN_ACT_SHAPES, for each variant: its output within
+    one bf16 unit of the plain version's, its ms beside the bytes bound (x
+    and the residual read once, the output written once, at the card's
+    memory rate), the plain version's ms and the eager unfused calls'
+    (``F.batch_norm`` through the modules, the add, ``F.relu``) as
+    ``library_ms``. Its launches are counted on the main path in the embed
+    and train_step phases. -> rows."""
+    import torch
+    import torch.nn.functional as F
+
+    from video_similarity_search_tpu_torch.ops import bn_act
+    from video_similarity_search_tpu_torch.utils.flops import peaks_for
+
+    variant_name, peaks = peaks_for(smi)
+    bw_peak = peaks[2]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for shape in BN_ACT_SHAPES:
+        for variant in BN_ACT_VARIANTS:
+            x, r, bn, rbn = bn_act_operands(gen, shape, variant)
+            with torch.inference_mode():
+                got = bn_act.bn_act_cuda(x, bn, r, rbn)
+                ref = torch.cat([bn_act.bn_act_plain(
+                    x[i:i + 32], bn, None if r is None else r[i:i + 32], rbn)
+                    for i in range(0, shape[0], 32)])
+            # within one bf16 unit of each output, and 2^-16 of the largest
+            # where a near-zero output is the difference of larger terms
+            row_err = within_one_bf16_unit(got, ref.float())
+            del ref
+            worst = row_err["max_abs_err"]
+            check(row_err["over_one_bf16_unit"] == 0, f"bn_act ({variant}) "
+                  f"within one bf16 unit of its plain version at {shape}: "
+                  f"{row_err}")
+            del got
+            out = torch.empty_like(x)
+            nbytes = x.numel() * x.element_size() * (2 + (r is not None))
+
+            def unfused():
+                y = bn(x)
+                return F.relu(y if r is None else y + (
+                    r if rbn is None else rbn(r)))
+
+            with torch.inference_mode():
+                row = {"shape": list(shape), "dtype": "bfloat16",
+                       "variant": variant, "max_abs_err_vs_plain": worst,
+                       "gb_moved": nbytes / 1e9,
+                       "bound_ms": nbytes / bw_peak * 1e3, "bound_by": "bytes",
+                       "ms": back_to_back_ms(lambda: bn_act.bn_act_cuda(
+                           x, bn, r, rbn, out=out), 10)}
+                row["share_of_bound"] = row["bound_ms"] / row["ms"]
+                row["tb_per_s"] = nbytes / (row["ms"] * 1e-3) / 1e12
+                row["plain_ms"] = back_to_back_ms(
+                    lambda: bn_act.bn_act_plain(x, bn, r, rbn), 3)
+                row["library_ms"] = back_to_back_ms(unfused, 3)
+            row["peak_variant"] = variant_name
+            row["sass"] = key_opcodes(sass["bn_act"])
+            rows.append(row)
+            emit("bn_act", name="bn_act", **row)
+            del x, r, out
+            torch.cuda.empty_cache()
+    return rows
+
+
 def stem_wgrad_unfold(x, dy, dtype=None, chunk: int = 64):
     """The stem's weight gradient by another route than the kernel's and
     cuDNN's: each frame's (3 x 7 x 7, position) patches (``F.unfold``,
@@ -839,7 +959,7 @@ def phase_embed():
     from video_similarity_search_tpu_torch.evaluation.embed import (
         cache_embeddings, get_embeddings_and_labels)
     from video_similarity_search_tpu_torch.models import model_selector
-    from video_similarity_search_tpu_torch.ops import stem_conv
+    from video_similarity_search_tpu_torch.ops import bn_act, stem_conv
     from video_similarity_search_tpu_torch.train.steps import make_embed_step
     from video_similarity_search_tpu_torch.data.augment import normalize_only
 
@@ -859,29 +979,36 @@ def phase_embed():
     launches = {}
     torch.cuda.reset_peak_memory_stats()
     timed = Epochs(train, 1)
-    stem_conv.LAUNCHES = 0
+    stem_conv.LAUNCHES = bn_act.LAUNCHES = 0
     t0 = time.perf_counter()
     tr_emb, tr_lbl, tr_idx = get_embeddings_and_labels(
         model, cfg, timed, split="train", verbose=False, device="cuda")
     t_end = time.perf_counter()
     launches["train_pass"] = stem_conv.LAUNCHES
     launches["train_pass_forwards"] = len(forwards)
+    launches["bn_act_train_pass"] = bn_act.LAUNCHES
     steady_clips = sum(len(b["clip"]) for b in train[1:])
     clips_per_s = steady_clips / (t_end - timed.stamps[1])
     first_batch_s = timed.stamps[1] - t0
     forwards.clear()
-    stem_conv.LAUNCHES = 0
+    stem_conv.LAUNCHES = bn_act.LAUNCHES = 0
     te_emb, te_lbl, te_idx = get_embeddings_and_labels(
         model, cfg, test, split="test", batch_pad=256, verbose=False,
         device="cuda")
     launches["test_pass"] = stem_conv.LAUNCHES
     launches["test_pass_forwards"] = len(forwards)
+    launches["bn_act_test_pass"] = bn_act.LAUNCHES
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     check(launches["train_pass"] == launches["train_pass_forwards"]
           == len(train), f"one stem_conv3d launch a batch of the train "
           f"pass ({launches}, {len(train)} batches)")
     check(launches["test_pass"] == launches["test_pass_forwards"] > 0,
           f"one stem_conv3d launch a forward of the test pass ({launches})")
+    for split in ("train", "test"):
+        check(launches[f"bn_act_{split}_pass"] == BN_ACT_SITES_R3D18
+              * launches[f"{split}_pass_forwards"],
+              f"{BN_ACT_SITES_R3D18} bn_act launches a forward of the "
+              f"{split} pass ({launches})")
 
     check(tr_emb.shape == (4096, 128), f"train embeddings {tr_emb.shape}")
     check(te_emb.shape == (n_test, 128), f"test embeddings {te_emb.shape}")
@@ -894,16 +1021,39 @@ def phase_embed():
     cfg32.TPU.COMPUTE_DTYPE = "float32"
     step32 = make_embed_step(cfg32, model, device="cuda")
     x = normalize_only(torch.from_numpy(train[0]["clip"]).cuda(), "kinetics")
-    stem_conv.LAUNCHES = 0
-    ref = step32(x).cpu().numpy()
+    stem_conv.LAUNCHES = bn_act.LAUNCHES = 0
+    fused32 = step32(x).cpu().numpy()
     launches["float32_forward"] = stem_conv.LAUNCHES
+    launches["bn_act_float32_forward"] = bn_act.LAUNCHES
+    # the reference: the same float32 forward through the modules' own
+    # BatchNorm, add and ReLU calls, no kernel of the port's
+    rule = bn_act.engages
+    bn_act.engages = lambda *a: False
+    try:
+        bn_act.LAUNCHES = 0
+        ref = step32(x).cpu().numpy()
+        launches["bn_act_unfused_float32_forward"] = bn_act.LAUNCHES
+    finally:
+        bn_act.engages = rule
     hook.remove()
     check(launches["float32_forward"] == 0, "the float32 forward keeps "
           "conv1 (no stem_conv3d launch)")
-    a = tr_emb[:256] / np.linalg.norm(tr_emb[:256], axis=1, keepdims=True)
-    b = ref / np.linalg.norm(ref, axis=1, keepdims=True)
-    max_cos = float(np.max(1.0 - np.sum(a * b, axis=1)))
+    check(launches["bn_act_float32_forward"] == BN_ACT_SITES_R3D18,
+          f"{BN_ACT_SITES_R3D18} bn_act launches in the float32 eval "
+          f"forward ({launches})")
+    check(launches["bn_act_unfused_float32_forward"] == 0,
+          f"no bn_act launch in the unfused float32 forward ({launches})")
+
+    def cos_dist(u, v):
+        u = u / np.linalg.norm(u, axis=1, keepdims=True)
+        v = v / np.linalg.norm(v, axis=1, keepdims=True)
+        return float(np.max(1.0 - np.sum(u * v, axis=1)))
+
+    max_cos = cos_dist(tr_emb[:256], ref)
     check(max_cos < 0.05, f"bf16 vs fp32 embeddings: cosine distance {max_cos}")
+    fused_cos = cos_dist(fused32, ref)
+    check(fused_cos < 1e-6, "float32 embeddings through bn_act vs the "
+          f"modules' calls: cosine distance {fused_cos}")
 
     cache = os.path.join(OUT, "cache")
     cache_embeddings(os.path.join(cache, "train_embeddings_ep0.pkl"),
@@ -917,6 +1067,7 @@ def phase_embed():
                             for b in test)),
          clips_per_s_steady=clips_per_s, first_batch_s=first_batch_s,
          peak_mem_gib=peak_gib, max_cos_dist_vs_fp32=max_cos,
+         max_cos_dist_fp32_bn_act_vs_unfused=fused_cos,
          stem_conv3d_launches=launches)
     return model, cfg, tr_emb, cache, launches
 
@@ -1851,7 +2002,7 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     from video_similarity_search_tpu_torch.train.steps import RANGES
 
     from video_similarity_search_tpu_torch.data.augment import train_augment
-    from video_similarity_search_tpu_torch.ops import stem_conv
+    from video_similarity_search_tpu_torch.ops import bn_act, stem_conv
     from video_similarity_search_tpu_torch.train.driver import (
         _microbatch_leaf, step_seed)
 
@@ -1883,13 +2034,15 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     whole = []
-    stem_conv.LAUNCHES = 0
+    stem_conv.LAUNCHES = bn_act.LAUNCHES = 0
     for i in range(TIMED_STEPS):
         t0 = time.perf_counter()
         step(augment(10 + i), gen)
         torch.cuda.synchronize()
         whole.append((time.perf_counter() - t0) * 1e3)
-    launches = stem_conv.LAUNCHES
+    launches, bn_launches = stem_conv.LAUNCHES, bn_act.LAUNCHES
+    check(bn_launches == 0, "no bn_act launch in a train-mode step "
+          f"({bn_launches} in {TIMED_STEPS} steps)")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     seeds = iter(range(20, 20 + TIMED_STEPS))
 
@@ -1905,7 +2058,7 @@ def time_steps(cfg, init, host, accum: int, split: bool = True):
            "step_ms_all": whole, "clips": clips,
            "clips_per_s": clips / (float(np.median(whole)) / 1e3),
            "peak_mem_gib": peak, "stem_conv3d_launches": launches,
-           "forwards": TIMED_STEPS * accum}
+           "bn_act_launches": bn_launches, "forwards": TIMED_STEPS * accum}
     if split:
         out["device_split_ms"] = split
     del model, opt, step
@@ -1973,9 +2126,12 @@ def phase_train_step():
          strategy=cfg.DATASET.SAMPLING_STRATEGY, lr=cfg.OPTIM.LR,
          momentum=cfg.OPTIM.MOMENTUM, fp32_card_vs_cpu=vs_cpu,
          bf16_vs_fp32=vs_fp32, timing=timing, learning=learn)
-    return timing[0]["clips_per_s"], {
-        f"accum_{row['accum_steps']}": row["stem_conv3d_launches"]
-        for row in timing}
+
+    def per_accum(key):
+        return {f"accum_{row['accum_steps']}": row[key] for row in timing}
+
+    return (timing[0]["clips_per_s"], per_accum("stem_conv3d_launches"),
+            per_accum("bn_act_launches"))
 
 
 def run_cli(cmd, what: str, timeout: int = 900):
@@ -4964,6 +5120,9 @@ def main() -> int:
     shapes = run("kernel", phase_kernel_nn1, smi, sass, bank)
     stem_rows = run("stem", phase_stem, smi, sass)
     wgrad_row = run("stem_wgrad", phase_stem_wgrad, smi, sass)
+    bn_act_rows = run("bn_act", phase_bn_act, smi, sass)
+    bn_act_head = next(r for r in bn_act_rows
+                       if (r["shape"], r["variant"]) == BN_ACT_HEADLINE)
     model, cfg, emb4096, cache, embed_launches = run("embed", phase_embed)
     finch_launches = run("cluster", phase_cluster, bank, bank_lbl, emb4096)
     run("retrieval", phase_retrieval, model, cfg, cache, bank)
@@ -4979,7 +5138,8 @@ def main() -> int:
     del bank, bank_lbl
     run("cli", phase_cli, ucf, paths, ucf_model, emb)
     del ucf_model, train_loader
-    step_rate, step_launches = run("train_step", phase_train_step)
+    step_rate, step_launches, step_bn_act_launches = run(
+        "train_step", phase_train_step)
     run("train_cli", phase_train_cli, paths, step_rate)
     tools_launches = run("tools", phase_tools, paths)
     run("train_options", phase_train_options)
@@ -5045,7 +5205,19 @@ def main() -> int:
         "library_ms": wgrad_row["library_ms"],
         "err_vs_fp64": wgrad_row["err_vs_fp64"],
         "cudnn_err_vs_fp64": wgrad_row["cudnn_err_vs_fp64"],
-        "sass": wgrad_row["sass"], "shape": wgrad_row["shape"]}]}),
+        "sass": wgrad_row["sass"], "shape": wgrad_row["shape"]}, {
+        "name": "bn_act", "route": "cuda", "source": KERNELS["bn_act"][0],
+        "replaces": KERNELS["bn_act"][1],
+        "launches": {"embed": {k: v for k, v in embed_launches.items()
+                               if k.startswith("bn_act")
+                               or k.endswith("forwards")},
+                     f"train_step ({TIMED_STEPS} steps)":
+                         step_bn_act_launches},
+        **{k: bn_act_head[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "shape",
+                                       "variant")},
+        "max_abs_err": max(r["max_abs_err_vs_plain"] for r in bn_act_rows),
+        "shapes": bn_act_rows}]}),
         flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

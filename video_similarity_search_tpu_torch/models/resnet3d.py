@@ -24,6 +24,12 @@ Options, as in the JAX module:
   ``ops/stem_conv.py`` on CUDA under bf16 autocast (``stem_conv.engages``
   decides from the convolution, the device and the autocast dtype);
   float32 compute, the CPU and ``stem_s2d`` call ``conv1``.
+* In eval mode on CUDA with no autograd graph, each BatchNorm with the
+  ReLU after it, and the residual add (shortcut B's BatchNorm included),
+  run as one hand-written pass over the activation (``ops/bn_act.py``;
+  ``bn_act.engages`` decides from the modules and the tensors' device,
+  type and layout); train mode, the CPU, other layouts and the
+  ``stem_s2d`` stem call the modules.
 * ``stem_s2d``: space-to-depth and a stride-1 (kT, 4, 4) convolution over
   4C channels, equal to the 7x7 stride-2 stem (``conv1_kernel_to_s2d``
   maps its weights). Its spatial padding is (2, 1); torch pads
@@ -47,7 +53,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops import stem_conv
+from ..ops import bn_act, stem_conv
 from ..utils.profiling import span
 from .heads import Dropout
 from .layers import (BatchNorm, Conv3d, ProjectionHead, frozen_stats,
@@ -112,6 +118,21 @@ def _make_downsample(in_ch: int, out_ch: int, stride: int,
     return nn.Sequential(Conv3d(in_ch, out_ch, 1, stride), BatchNorm(out_ch))
 
 
+def _residual(block: nn.Module, x: torch.Tensor):
+    """A block's residual -> (tensor, BatchNorm left to apply or None): x,
+    or the downsample's output. Where the block's epilogue may take the
+    fused pass (eval mode on CUDA, no autograd graph), shortcut B's
+    BatchNorm is left to it (``bn_act.bn_relu``) and its convolution's
+    output is returned."""
+    ds = block.downsample
+    if ds is None:
+        return x, None
+    if (isinstance(ds, nn.Sequential)
+            and bn_act.may_engage(block, x.device.type)):
+        return ds[0](x), ds[1]
+    return ds(x), None
+
+
 class BasicBlock3d(nn.Module):
     """Two 3x3x3 convs + residual (reference models/resnet.py:27-57)."""
 
@@ -128,10 +149,9 @@ class BasicBlock3d(nn.Module):
                                            shortcut_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        r = x if self.downsample is None else self.downsample(x)
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = self.bn2(self.conv2(h))
-        return F.relu(h + r)
+        r, r_bn = _residual(self, x)
+        h = bn_act.bn_relu(self.conv1(x), self.bn1)
+        return bn_act.bn_relu(self.conv2(h), self.bn2, r, r_bn)
 
 
 class Bottleneck3d(nn.Module):
@@ -153,11 +173,10 @@ class Bottleneck3d(nn.Module):
                                            shortcut_type)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        r = x if self.downsample is None else self.downsample(x)
-        h = F.relu(self.bn1(self.conv1(x)))
-        h = F.relu(self.bn2(self.conv2(h)))
-        h = self.bn3(self.conv3(h))
-        return F.relu(h + r)
+        r, r_bn = _residual(self, x)
+        h = bn_act.bn_relu(self.conv1(x), self.bn1)
+        h = bn_act.bn_relu(self.conv2(h), self.bn2)
+        return bn_act.bn_relu(self.conv3(h), self.bn3, r, r_bn)
 
 
 class ChannelTemporalAttention(nn.Module):
@@ -307,13 +326,14 @@ class ResNet3D(nn.Module):
             if self.stem_s2d:
                 h = space_to_depth(x).permute(0, 4, 1, 2, 3)
                 out_h, out_w = h.shape[-2:]
-                h = self.conv1(h)[..., :out_h, :out_w]
+                h = F.relu(self.bn1(self.conv1(h)[..., :out_h, :out_w]))
             elif stem_conv.engages(self.conv1, x.device.type,
                                    stem_conv.autocast_dtype(x.device.type)):
-                h = stem_conv.stem_conv3d(x, self.conv1.weight)
-            else:
-                h = self.conv1(x.permute(0, 4, 1, 2, 3))  # channels_last_3d
-            h = F.relu(self.bn1(h))
+                h = bn_act.bn_relu(stem_conv.stem_conv3d(x, self.conv1.weight),
+                                   self.bn1)
+            else:  # channels_last_3d
+                h = bn_act.bn_relu(self.conv1(x.permute(0, 4, 1, 2, 3)),
+                                   self.bn1)
             if not self.no_max_pool:
                 h = max_pool3d(h)
         for stage in range(1, self.n_stages + 1):
